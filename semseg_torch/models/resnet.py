@@ -1,0 +1,153 @@
+"""Deep-base ResNet backbones (NCHW).
+
+Port of ``semseg_tpu/models/resnet.py``:
+- deep-base stem: three 3x3 convs (3->64 s2, 64->64, 64->128) + max pool
+  instead of the single 7x7 conv (reference ``model/resnet.py:106-113``);
+- BasicBlock (18/34) and Bottleneck (50/101/152) residual blocks, with
+  the stride and dilation on the 3x3 conv;
+- per-stage (stride, dilation); segmentation uses strides (1, 2, 1, 1)
+  and dilations (1, 1, 2, 4), output stride 8 (reference
+  ``model/pspnet.py:49-58``);
+- kaiming fan_out init for convs, BN weight 1 and bias 0.
+
+Submodules carry the reference state_dict names: ``layer0.{0,1,3,4,6,7}``
+for the stem, ``layer{s}.{b}.conv{i}/bn{i}`` and ``downsample.{0,1}``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from semseg_torch.models.layers import (
+    BatchNorm2d,
+    Conv2d,
+    ConvBN,
+    kaiming_normal_fan_out_,
+)
+from semseg_torch.ops.pool import max_pool2d
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None):
+        super().__init__()
+        self.conv1 = Conv2d(inplanes, planes, 3, stride=stride,
+                            padding=dilation, dilation=dilation, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, padding=dilation,
+                            dilation=dilation, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None):
+        super().__init__()
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=dilation,
+                            dilation=dilation, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = BatchNorm2d(planes * 4)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(out + residual)
+
+
+_ARCH = {
+    18: (BasicBlock, (2, 2, 2, 2)),
+    34: (BasicBlock, (3, 4, 6, 3)),
+    50: (Bottleneck, (3, 4, 6, 3)),
+    101: (Bottleneck, (3, 4, 23, 3)),
+    152: (Bottleneck, (3, 8, 36, 3)),
+}
+
+SEG_STRIDES = (1, 2, 1, 1)
+SEG_DILATIONS = (1, 1, 2, 4)
+
+
+def _stage(block, inplanes, planes, blocks, stride, dilation):
+    out = planes * block.expansion
+    downsample = None
+    if stride != 1 or inplanes != out:
+        downsample = nn.Sequential(
+            Conv2d(inplanes, out, 1, stride=stride, bias=False),
+            BatchNorm2d(out),
+        )
+    return nn.Sequential(
+        block(inplanes, planes, stride, dilation, downsample),
+        *(block(out, planes, 1, dilation) for _ in range(1, blocks)),
+    )
+
+
+class ResNet(nn.Module):
+    """ResNet backbone; ``forward`` returns the outputs of layer1..layer4.
+
+    ``dtype`` is the compute dtype: the input is cast to it, parameters
+    stay float32. Classification default: strides (1, 2, 2, 2), dilations
+    (1, 1, 1, 1); segmentation passes ``SEG_STRIDES``/``SEG_DILATIONS``.
+    """
+
+    def __init__(self, depth: int = 50, deep_base: bool = True,
+                 stage_strides: Tuple[int, ...] = (1, 2, 2, 2),
+                 stage_dilations: Tuple[int, ...] = (1, 1, 1, 1),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        block, counts = _ARCH[depth]
+        self.dtype = dtype
+        if deep_base:
+            self.layer0 = nn.Sequential(
+                *ConvBN(3, 64, 3, stride=2, padding=1),
+                *ConvBN(64, 64, 3, padding=1),
+                *ConvBN(64, 128, 3, padding=1),
+            )
+        else:
+            self.layer0 = nn.Sequential(*ConvBN(3, 64, 7, stride=2, padding=3))
+        inplanes = 128 if deep_base else 64
+        for s, (planes, blocks) in enumerate(zip((64, 128, 256, 512), counts)):
+            setattr(self, f"layer{s + 1}", _stage(
+                block, inplanes, planes, blocks, stage_strides[s],
+                stage_dilations[s],
+            ))
+            inplanes = planes * block.expansion
+
+    def init_weights(self, generator: torch.Generator):
+        """Kaiming fan_out normal for every backbone conv (reference
+        ``model/resnet.py:123-128``); BN keeps weight 1, bias 0."""
+        for layer in (self.layer0, self.layer1, self.layer2, self.layer3,
+                      self.layer4):
+            for m in layer.modules():
+                if isinstance(m, nn.Conv2d):
+                    kaiming_normal_fan_out_(m.weight, generator)
+
+    def features(self, x):
+        x = max_pool2d(self.layer0(x.to(self.dtype)), 3, 2, 1)
+        c1 = self.layer1(x)
+        c2 = self.layer2(c1)
+        c3 = self.layer3(c2)
+        c4 = self.layer4(c3)
+        return c1, c2, c3, c4
+
+    def forward(self, x):
+        return self.features(x)
+
