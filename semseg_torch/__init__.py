@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``semseg_tpu`` (PSPNet sliding-window serving).
+"""PyTorch/CUDA port of ``semseg_tpu`` (PSPNet and PSANet sliding-window serving).
 
 Module paths and public names follow the JAX package (``ops/resize.py``,
 ``models/pspnet.py``, ``engine/evaluator.py``, ...). The package imports

@@ -1,8 +1,9 @@
 """Model construction from experiment configs.
 
-Port of ``semseg_tpu/models/build.py`` for ``arch: psp``. ``cfg`` is any
-object with the config keys as attributes (``semseg_tpu.config.Config``
-or a plain namespace).
+Port of ``semseg_tpu/models/build.py`` (``arch: psp`` and ``arch: psa``).
+``cfg`` is any object with the config keys as attributes
+(``semseg_tpu.config.Config`` or a plain namespace); optional keys are read
+with ``getattr``.
 """
 
 from __future__ import annotations
@@ -10,7 +11,32 @@ from __future__ import annotations
 import torch
 
 from semseg_torch.models.layers import set_precision
+from semseg_torch.models.psanet import PSANet
 from semseg_torch.models.pspnet import PSPNet
+
+
+def derive_psa_mask_dims(cfg):
+    """Resolve (mask_h, mask_w) from the crop size and shrink factor (JAX
+    ``build.py:15-39``, reference ``tool/train.py:63-77``): compact mode
+    uses the feature extent, otherwise the full relative extent
+    ``2*((crop-1)//(8*shrink)+1)-1`` by default; explicit values must be
+    odd, >= 3 and no larger than the full extent. Reads ``train_h/w``."""
+    shrink = cfg.shrink_factor
+    feat_h = (cfg.train_h - 1) // (8 * shrink) + 1
+    feat_w = (cfg.train_w - 1) // (8 * shrink) + 1
+    if cfg.compact:
+        return feat_h, feat_w
+    mask_h, mask_w = getattr(cfg, "mask_h", None), getattr(cfg, "mask_w", None)
+    if (mask_h is None) != (mask_w is None):
+        raise ValueError("mask_h and mask_w must both be set or both unset")
+    full_h, full_w = 2 * feat_h - 1, 2 * feat_w - 1
+    if mask_h is None:
+        return full_h, full_w
+    if not (mask_h % 2 == 1 and 3 <= mask_h <= full_h):
+        raise ValueError(f"mask_h={mask_h} invalid (odd, 3..{full_h})")
+    if not (mask_w % 2 == 1 and 3 <= mask_w <= full_w):
+        raise ValueError(f"mask_w={mask_w} invalid (odd, 3..{full_w})")
+    return mask_h, mask_w
 
 
 def validate_arch(cfg):
@@ -26,16 +52,28 @@ def validate_arch(cfg):
 
 
 def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
-                seed: int = 0) -> PSPNet:
+                seed: int = 0):
     """The eval-mode model described by ``cfg`` on ``device``, with seeded
     random weights (load a checkpoint over them to serve real ones).
     float32 models also turn TF32 off (``layers.set_precision``)."""
     validate_arch(cfg)
-    if cfg.arch == "psa":
-        raise NotImplementedError(
-            "arch 'psa' (PSANet) is not ported yet: ROADMAP queue 1 item 10")
     set_precision(dtype)
-    model = PSPNet(layers=cfg.layers, classes=cfg.classes,
-                   zoom_factor=cfg.zoom_factor, dtype=dtype)
+    if cfg.arch == "psp":
+        model = PSPNet(layers=cfg.layers, classes=cfg.classes,
+                       zoom_factor=cfg.zoom_factor, dtype=dtype)
+    else:
+        mask_h, mask_w = derive_psa_mask_dims(cfg)
+        # An empty normalization_factor defaults to mask_h*mask_w
+        # (reference model/psanet.py:20-22).
+        norm = getattr(cfg, "normalization_factor", None)
+        if norm is None:
+            norm = float(mask_h * mask_w)
+        model = PSANet(
+            layers=cfg.layers, classes=cfg.classes, zoom_factor=cfg.zoom_factor,
+            psa_type=cfg.psa_type, compact=bool(cfg.compact),
+            shrink_factor=cfg.shrink_factor, mask_h=mask_h, mask_w=mask_w,
+            normalization_factor=norm, psa_softmax=bool(cfg.psa_softmax),
+            # None = auto (the CUDA kernels on CUDA); True/False force.
+            fused_attention=getattr(cfg, "fused_attention", None), dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(device or "cpu").eval()

@@ -69,6 +69,23 @@ def _head(out, params, stats, name):
     out[f"{name}.4.bias"] = _tensor(params[name]["conv_logits"]["bias"])
 
 
+def _psa(out, params, stats):
+    """The PSA subtree (JAX ``export_torch_state_dict``, ``convert.py:260-274``):
+    ``reduce{,_p}`` -> ``psa.reduce{,_p}.{0,1}``, ``attention{,_p}_cb`` ->
+    ``psa.attention{,_p}.{0,1}`` with the logits conv as ``.3``, ``proj``."""
+    for suffix in ("", "_p"):
+        if f"reduce{suffix}" in params:
+            _convbn(out, params[f"reduce{suffix}"], stats[f"reduce{suffix}"],
+                    f"psa.reduce{suffix}.0", f"psa.reduce{suffix}.1")
+        if f"attention{suffix}_cb" in params:
+            _convbn(out, params[f"attention{suffix}_cb"],
+                    stats[f"attention{suffix}_cb"],
+                    f"psa.attention{suffix}.0", f"psa.attention{suffix}.1")
+            out[f"psa.attention{suffix}.3.weight"] = _oihw(
+                params[f"attention{suffix}_conv"]["kernel"])
+    _convbn(out, params["proj"], stats["proj"], "psa.proj.0", "psa.proj.1")
+
+
 def backbone_state_dict_from_jax(variables):
     """A bare JAX ``ResNet``'s variables -> the port ``ResNet`` state_dict."""
     out = {}
@@ -80,17 +97,17 @@ def state_dict_from_jax(variables, arch: str = "psp", layers: int = 50):
     """JAX segmentation-model variables -> the port's state_dict, key for
     key the reference naming (``layers`` is implied by the tree and kept
     for the JAX exporter's signature)."""
-    if arch == "psa":
-        raise NotImplementedError(
-            "PSANet is not ported yet (ROADMAP queue 1 item 10)")
-    if arch != "psp":
+    if arch not in ("psp", "psa"):
         raise ValueError(f"architecture {arch!r} not supported")
     params, stats = variables["params"], variables["batch_stats"]
     out = {}
     _backbone(out, params["backbone"], stats["backbone"])
-    for i in range(len(params.get("ppm", {}))):
-        _convbn(out, params["ppm"][f"branch{i}"], stats["ppm"][f"branch{i}"],
-                f"ppm.features.{i}.1", f"ppm.features.{i}.2")
+    if arch == "psp":
+        for i in range(len(params.get("ppm", {}))):
+            _convbn(out, params["ppm"][f"branch{i}"], stats["ppm"][f"branch{i}"],
+                    f"ppm.features.{i}.1", f"ppm.features.{i}.2")
+    elif "psa" in params:
+        _psa(out, params["psa"], stats["psa"])
     _head(out, params, stats, "cls")
     _head(out, params, stats, "aux")
     return out

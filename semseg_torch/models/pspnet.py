@@ -90,22 +90,30 @@ class PSPNet(ResNet):
                     torch_default_conv_init_(m, generator)
 
     def forward(self, x, zoom: bool = True):
-        h_in, w_in = x.shape[-2], x.shape[-1]
-        if (h_in - 1) % 8 or (w_in - 1) % 8:
-            raise ValueError(f"(H-1) and (W-1) must be multiples of 8, got {(h_in, w_in)}")
-        out_hw = ((h_in - 1) // 8 * self.zoom_factor + 1,
-                  (w_in - 1) // 8 * self.zoom_factor + 1)
-        resize = zoom and self.zoom_factor != 1
+        return segment(self, x, zoom, self.ppm if self.use_ppm else None)
 
-        _, _, c3, c4 = self.features(x)
-        feat = self.ppm(c4) if self.use_ppm else c4
-        logits = self.cls(feat)
+
+def segment(model: ResNet, x, zoom: bool, context):
+    """The forward shared by PSPNet and PSANet: backbone, ``context`` module
+    on layer4 (PPM or PSA; ``None`` = identity), ``cls`` head, optional
+    zoom upsample, float32 logits; in train mode also the ``aux`` head on
+    layer3."""
+    h_in, w_in = x.shape[-2], x.shape[-1]
+    if (h_in - 1) % 8 or (w_in - 1) % 8:
+        raise ValueError(f"(H-1) and (W-1) must be multiples of 8, got {(h_in, w_in)}")
+    out_hw = ((h_in - 1) // 8 * model.zoom_factor + 1,
+              (w_in - 1) // 8 * model.zoom_factor + 1)
+    resize = zoom and model.zoom_factor != 1
+
+    _, _, c3, c4 = model.features(x)
+    feat = c4 if context is None else context(c4)
+    logits = model.cls(feat)
+    if resize:
+        logits = resize_bilinear_align_corners_cf(logits, out_hw)
+    logits = logits.float()
+    if model.training:
+        aux = model.aux(c3)
         if resize:
-            logits = resize_bilinear_align_corners_cf(logits, out_hw)
-        logits = logits.float()
-        if self.training:
-            aux = self.aux(c3)
-            if resize:
-                aux = resize_bilinear_align_corners_cf(aux, out_hw)
-            return logits, aux.float()
-        return logits
+            aux = resize_bilinear_align_corners_cf(aux, out_hw)
+        return logits, aux.float()
+    return logits

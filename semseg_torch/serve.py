@@ -13,8 +13,10 @@ Requests are served one at a time on the device (a lock around
 ``predict``). Scales, crop and flip come from the TEST section of the
 config, as in the batch tester.
 
-Usage:
+Usage (on ``cuda:{test_gpu[0]}``; without a CUDA device ``main`` raises):
     python -m semseg_torch.serve --config config/cityscapes/cityscapes_pspnet50.yaml \\
+        model_path exp/.../model.pth [serve_port 8080]
+    python -m semseg_torch.serve --config config/cityscapes/cityscapes_psanet50.yaml \\
         model_path exp/.../model.pth [serve_port 8080]
 
 Smoke (random weights):
@@ -155,13 +157,21 @@ def make_server(cfg, port=None, device=None):
 
 
 def main(argv=None):
+    """Serve on ``cuda:{test_gpu[0]}`` (``cuda:0`` when the key is absent).
+    Without a CUDA device it raises; ``make_server(cfg, device="cpu")``
+    serves on the CPU explicitly."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "semseg_torch.serve needs a CUDA device and "
+            "torch.cuda.is_available() is false; call "
+            "make_server(cfg, device='cpu') to serve on the CPU")
     from semseg_tpu.config import parse_config_args  # imports yaml
 
     cfg = parse_config_args(
         argv, default_config="config/cityscapes/cityscapes_pspnet50.yaml"
     )
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    make_server(cfg, device=device).serve_forever()
+    gpus = getattr(cfg, "test_gpu", None) or [0]
+    make_server(cfg, device=f"cuda:{gpus[0]}").serve_forever()
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from semseg_tpu.models.pspnet import PSPNet as JPSPNet
 from semseg_tpu.models.resnet import ResNet as JResNet
 from semseg_tpu.models.resnet import SEG_DILATIONS, SEG_STRIDES
 from semseg_torch.models import build, convert, layers
+from semseg_torch.models.psanet import PSANet
 from semseg_torch.models.pspnet import PSPNet
 from semseg_torch.models.resnet import ResNet
 
@@ -205,8 +206,24 @@ def test_build_model_rules():
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     assert not m.training and m.dtype == torch.float32 and m.classes == 3
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        build.build_model(NS(**{**vars(cfg), "arch": "psa"}))
+    # arch psa builds PSANet; the mask derives from train_h/w and shrink
+    psa = NS(**{**vars(cfg), "arch": "psa", "psa_type": 2, "compact": 0,
+                "shrink_factor": 2, "normalization_factor": 1.0, "psa_softmax": 1})
+    m = build.build_model(psa)
+    assert isinstance(m, PSANet) and (m.psa.mask_h, m.psa.mask_w) == (5, 5)
+    city = NS(**{**vars(psa), "train_h": 705, "train_w": 705})
+    assert build.derive_psa_mask_dims(city) == (89, 89)
+    assert build.derive_psa_mask_dims(NS(**{**vars(psa), "train_h": 465,
+                                            "train_w": 465})) == (59, 59)
+    assert build.derive_psa_mask_dims(NS(**{**vars(city), "compact": 1})) == (45, 45)
+    assert build.derive_psa_mask_dims(NS(**{**vars(city), "mask_h": 7,
+                                            "mask_w": 9})) == (7, 9)
+    for mask in ((8, 9), (91, 89), (89, 1)):  # even, oversized, below 3
+        with pytest.raises(ValueError, match="invalid"):
+            build.derive_psa_mask_dims(NS(**{**vars(city), "mask_h": mask[0],
+                                             "mask_w": mask[1]}))
+    with pytest.raises(ValueError, match="both"):
+        build.derive_psa_mask_dims(NS(**{**vars(city), "mask_h": 7}))
     with pytest.raises(ValueError):
         build.validate_arch(NS(**{**vars(cfg), "train_h": 32}))
     with pytest.raises(ValueError):

@@ -118,6 +118,14 @@ def test_build_evaluator_weights(tmp_path):
     assert torch.equal(a, ref.cls[4].weight) and not torch.equal(a, b)
 
 
+def test_main_raises_without_cuda(monkeypatch):
+    """The server does not fall back to the CPU when no GPU is found."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.main(["--config", "config/cityscapes/cityscapes_psanet50.yaml",
+                    "allow_random_weights", "True"])
+
+
 def test_port_imports_no_jax():
     """Importing the port and serving one image pulls in no jax/flax, and
     no cv2, yaml or PIL (those load only inside the functions that use
