@@ -51,13 +51,30 @@ def validate_arch(cfg):
         raise ValueError("(train_h-1) and (train_w-1) must be multiples of 8")
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The config's ``compute_dtype``: float32 by default (the reference
+    recipe trains in f32), bfloat16 opt-in (``tool/train.py:123-138``)."""
+    name = getattr(cfg, "compute_dtype", None) or "float32"
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
 def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
-                seed: int = 0):
-    """The eval-mode model described by ``cfg`` on ``device``, with seeded
-    random weights (load a checkpoint over them to serve real ones).
-    float32 models also turn TF32 off (``layers.set_precision``)."""
+                seed: int = 0, train: bool = False):
+    """The model described by ``cfg`` on ``device``, with seeded random
+    weights (load a checkpoint over them to serve real ones), in eval mode,
+    or in train mode with ``train``. float32 models run with TF32 off, or
+    on for ``matmul_precision: high`` (``layers.set_precision``).
+
+    The port trains on one GPU, so there is one replica and BatchNorm takes
+    its moments over the whole batch: what ``sync_bn`` asks for, and what
+    ``sync_bn: False`` gives on one replica too."""
     validate_arch(cfg)
-    set_precision(dtype)
+    set_precision(dtype, getattr(cfg, "matmul_precision", None))
     if cfg.arch == "psp":
         model = PSPNet(layers=cfg.layers, classes=cfg.classes,
                        zoom_factor=cfg.zoom_factor, dtype=dtype)
@@ -76,4 +93,4 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
             # None = auto (the CUDA kernels on CUDA); True/False force.
             fused_attention=getattr(cfg, "fused_attention", None), dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(seed))
-    return model.to(device or "cpu").eval()
+    return model.to(device or "cpu").train(train)

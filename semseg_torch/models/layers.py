@@ -1,5 +1,6 @@
-"""Core layers: compute-dtype convs, BatchNorm with the JAX eval numerics,
-ConvBN, and the two weight inits of the reference.
+"""Core layers: compute-dtype convs, BatchNorm with the JAX numerics,
+channel dropout from an explicit generator, ConvBN, and the two weight
+inits of the reference.
 
 Port of ``semseg_tpu/models/layers.py``. Parameters are float32; a model
 built for bf16 runs its convolutions in bf16 (the weight is cast to the
@@ -16,14 +17,20 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def set_precision(dtype) -> None:
-    """The float32 "highest" precision contract (JAX ``layers.py:79-89``):
-    float32 models turn TF32 off for cuBLAS matmuls and cuDNN
-    convolutions, which on Hopper default to TF32 for convolutions. Other
-    dtypes leave the flags alone."""
+def set_precision(dtype, matmul_precision=None) -> None:
+    """The float32 precision contract (JAX ``layers.py:53-89``): float32
+    models run cuBLAS matmuls and cuDNN convolutions in full float32 (TF32
+    off; cuDNN defaults to TF32 for convolutions on Hopper), unless the
+    config's ``matmul_precision`` is ``high``, which turns TF32 on. Other
+    dtypes leave the flags alone. The flags are process-wide: a bf16 model
+    built after a float32 one keeps TF32 off."""
+    if matmul_precision not in (None, "default", "high", "highest"):
+        raise ValueError(f"matmul_precision must be default/high/highest, "
+                         f"got {matmul_precision}")
     if dtype == torch.float32:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        tf32 = matmul_precision == "high"
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 class Conv2d(nn.Conv2d):
@@ -40,7 +47,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose eval path is the JAX package's
     (``layers.py:142-145``): ``(x - mean) * rsqrt(var + eps) * weight +
     bias`` in float32, cast back to the input dtype. Train mode is
-    PyTorch's own batch statistics in float32."""
+    PyTorch's own, on the float32 input: batch moments over (N, H, W),
+    running statistics with momentum 0.1 and the unbiased variance, as the
+    JAX ``BatchNorm`` reimplements (``layers.py:147-175``)."""
 
     def forward(self, x):
         if self.training:
@@ -50,6 +59,32 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.view(shape) + self.eps
         )
         return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout, ``nn.Dropout2d`` semantics (JAX ``Dropout2d``,
+    ``layers.py:248-258``: whole channels per sample, kept ones scaled by
+    ``1/(1-p)``), drawing its mask from ``self.generator`` (a
+    ``torch.Generator`` on the activations' device, set by the trainer;
+    None draws from the global generator). The streams differ from JAX's,
+    so parity tests run with ``p = 0``."""
+
+    def __init__(self, p: float = 0.1):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+    def forward(self, x):
+        if not self.training or self.p == 0:
+            return x
+        if self.p >= 1:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape[0], x.shape[1], 1, 1, device=x.device,
+                          generator=self.generator) >= self.p
+        return x * (keep.to(x.dtype) / (1.0 - self.p))
 
 
 class ConvBN(nn.Sequential):

@@ -20,7 +20,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from semseg_torch.models.layers import Conv2d, ConvBN, torch_default_conv_init_
+from semseg_torch.models.layers import (
+    Conv2d,
+    ConvBN,
+    Dropout2d,
+    torch_default_conv_init_,
+)
 from semseg_torch.models.resnet import SEG_DILATIONS, SEG_STRIDES, ResNet
 from semseg_torch.ops.pool import AdaptiveAvgPool2d
 from semseg_torch.ops.resize import resize_bilinear_align_corners_cf
@@ -49,7 +54,7 @@ def seg_head(in_dim: int, mid: int, classes: int, dropout: float):
     ``cls``/``aux`` naming."""
     return nn.Sequential(
         *ConvBN(in_dim, mid, 3, padding=1),
-        nn.Dropout2d(p=dropout),
+        Dropout2d(p=dropout),
         Conv2d(mid, classes, 1),
     )
 

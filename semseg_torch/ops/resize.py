@@ -63,11 +63,14 @@ def _interp_matrix_half_pixel(in_size: int, out_size: int) -> np.ndarray:
 def interp_matrix(in_size: int, out_size: int, half_pixel: bool,
                   device: torch.device) -> torch.Tensor:
     """The ``[out, in]`` float32 matrix as a tensor on ``device``, built
-    once per (sizes, grid, device)."""
+    once per (sizes, grid, device). It is built outside inference mode even
+    when the first call comes from inside it (the evaluator), so that a
+    later training step can save it for backward."""
     m = (_interp_matrix_half_pixel if half_pixel else _interp_matrix)(
         in_size, out_size
     )
-    return torch.from_numpy(m).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device)
 
 
 def _resize_cf(x: torch.Tensor, size, half_pixel: bool) -> torch.Tensor:

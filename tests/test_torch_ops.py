@@ -140,3 +140,18 @@ def test_stitch_wrapper_dispatch_rules():
     assert stitch.supported(torch.bfloat16)
     assert not stitch.supported(torch.float32)
 
+
+
+def test_resize_is_differentiable_after_inference_mode():
+    """The matrix cache filled by a first call under ``inference_mode``
+    (the evaluator) must serve a later training step: gradients equal
+    ``F.interpolate``'s (a process that serves and then trains failed with
+    "Inference tensors cannot be saved for backward")."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 2, 7, 11).astype(np.float32))
+    with torch.inference_mode():
+        resize.resize_bilinear_align_corners_cf(x, (13, 21))
+    xg = x.clone().requires_grad_()
+    resize.resize_bilinear_align_corners_cf(xg, (13, 21)).square().sum().backward()
+    xr = x.clone().requires_grad_()
+    F.interpolate(xr, (13, 21), mode="bilinear", align_corners=True).square().sum().backward()
+    torch.testing.assert_close(xg.grad, xr.grad, rtol=1e-5, atol=1e-5)

@@ -295,3 +295,163 @@ def test_build_psanet_defaults():
     assert (m.psa.mask_h, m.psa.mask_w) == (5, 5)
     assert m.psa.normalization_factor == 25.0 and m.psa.fused_attention is False
     assert m.psa.attention[3].weight.shape == (25, 512, 1, 1)
+
+
+# --------------------------------------------- backward: plain vs Pallas VJPs
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def _assert_grads_close(got: torch.Tensor, want, dtype):
+    """f32: rtol 1e-4, atol 1e-5 (``tests/test_psa_pallas.py:95-141``).
+    bf16: within one bf16 ulp of max|want| (both round the same f32 math
+    to bf16; sums in another order may flip the last bit)."""
+    want = np.asarray(want, np.float32)
+    got = got.float().numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=_bf16_ulp(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("flash,n,c,hw,tiles,dtype,norm", [
+    (False, 1, 16, 36, 16, "f32", 1.7),        # ragged, 3 query tiles
+    (False, 2, 8, 70, 32, "bf16", 2.0),
+    (True, 1, 8, 70, (32, 128), "f32", 2.0),   # several source tiles
+    (True, 2, 8, 100, (32, 32), "f32", 1.3),   # several tiles on both axes, ragged
+    (True, 1, 8, 48, (16, 128), "bf16", 1.5),
+])
+def test_plain_backward_matches_pallas_vjp(flash, n, c, hw, tiles, dtype, norm):
+    """``psa_softmax_bmm_bwd_reference`` (and the three backward entry
+    points, which run it on the CPU) against ``jax.vjp`` of the Pallas
+    resident or flash kernel in interpret mode; the statistics come from
+    the plain forward."""
+    (jx, ja), (x, a) = _operands(hw + 2, n, c, hw, dtype)
+    g = np.random.RandomState(hw + 3).randn(n, c, hw).astype(np.float32)
+    if flash:
+        fwd = lambda xx, aa: jpsa.psa_softmax_bmm_flash(xx, aa, norm, True, *tiles)  # noqa: E731
+    else:
+        fwd = lambda xx, aa: jpsa.psa_softmax_bmm(xx, aa, norm, tiles, True)  # noqa: E731
+    _, pull = jax.vjp(fwd, jx, ja)
+    want_dx, want_da = pull(jnp.asarray(g))
+    assert want_dx.dtype == jx.dtype and want_da.dtype == ja.dtype
+
+    gt = torch.from_numpy(g)
+    out = psa.psa_softmax_bmm_reference(x, a, norm)
+    m, l = psa.psa_softmax_stats(a)
+    dx, da = psa.psa_softmax_bmm_bwd_reference(x, a, gt, m, l, out, norm)
+    assert dx.dtype == x.dtype and da.dtype == a.dtype
+    _assert_grads_close(dx, want_dx, dtype)
+    _assert_grads_close(da, want_da, dtype)
+
+    counts = (psa.psa_softmax_bmm_bwd_da.launches, psa.psa_softmax_bmm_bwd_dx.launches,
+              psa.psa_softmax_bmm_flash_bwd.launches)
+    if flash:
+        fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, gt, m, l, out, norm)
+    else:
+        fdx = psa.psa_softmax_bmm_bwd_dx(x, a, gt, m, l, norm)
+        fda = psa.psa_softmax_bmm_bwd_da(x, a, gt, m, l, out, norm)
+    assert counts == (psa.psa_softmax_bmm_bwd_da.launches, psa.psa_softmax_bmm_bwd_dx.launches,
+                      psa.psa_softmax_bmm_flash_bwd.launches)  # CPU: plain versions
+    torch.testing.assert_close(fdx, dx, rtol=0, atol=0)
+    torch.testing.assert_close(fda, da, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("entry", ["psa_softmax_bmm", "psa_softmax_bmm_flash"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_entry_points_are_differentiable(entry, dtype):
+    """Under grad the entry points run their autograd Function (plain
+    versions on the CPU): the same output as the plain forward, gradients
+    in the primal dtypes equal to the plain backward, and autograd of the
+    plain forward within 1e-5 (f32; bf16 within one bf16 ulp)."""
+    fn = getattr(psa, entry)
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(2, 6, 23).astype(np.float32)).to(dtype).requires_grad_()
+    a = torch.from_numpy((rs.randn(2, 23, 23) * 3).astype(np.float32)).to(dtype).requires_grad_()
+    g = torch.from_numpy(rs.randn(2, 6, 23).astype(np.float32))
+    out = fn(x, a, 1.5)
+    assert out.grad_fn is not None and out.dtype == torch.float32
+    dx, da = torch.autograd.grad(out, (x, a), g)
+    assert dx.dtype == da.dtype == dtype
+    with torch.no_grad():
+        plain = psa.psa_softmax_bmm_reference(x, a, 1.5)
+        m, l = psa.psa_softmax_stats(a)
+        want = psa.psa_softmax_bmm_bwd_reference(x, a, g, m, l, plain, 1.5)
+    torch.testing.assert_close(out.detach(), plain, rtol=0, atol=0)
+    torch.testing.assert_close(dx, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(da, want[1], rtol=0, atol=0)
+    auto = torch.autograd.grad(psa.psa_softmax_bmm_reference(x, a, 1.5), (x, a), g)
+    for got, ref in zip((dx, da), auto):
+        _assert_grads_close(got, ref.float().numpy(), "f32" if dtype == torch.float32 else "bf16")
+    with pytest.raises(ValueError, match="forward-only"):
+        fn(x, a, 1.5, return_stats=True)
+    with torch.no_grad():
+        assert len(fn(x, a, 1.5, return_stats=True)) == 3
+
+
+# ------------------------------------------------------- PSA module, train
+
+
+@pytest.mark.parametrize("psa_type,compact,shrink,mask,norm,fused", [
+    (0, False, 2, (9, 9), 1.0, True),
+    (1, False, 1, (7, 5), 2.0, True),
+    (2, False, 2, (9, 9), 1.0, None),
+    (0, True, 2, (5, 5), 1.0, True),
+    (1, True, 1, (9, 9), 1.0, True),
+    (2, True, 2, (5, 5), 1.0, True),
+])
+def test_psa_module_train_matches_jax(psa_type, compact, shrink, mask, norm, fused):
+    """Train mode, f32: the output and the new running statistics against
+    flax ``PSA`` with ``mutable=["batch_stats"]``, and the gradients of
+    ``sum(out * G)`` for the input and every parameter (mapped through
+    ``state_dict_from_jax``): within 3e-4 of each tensor's max|JAX|. BN
+    weight gradients are sums over 50-162 positions with cancellation, and
+    JAX's train-mode BN takes var = E[x^2] - E[x]^2 where torch takes a
+    two-pass variance; measured up to 1.6e-4 (attention BN at shrink 1), the
+    same with the plain attention as with the Function."""
+    seed = 10 + psa_type + 3 * shrink
+    jm = JPSA(in_channels=16, mid_channels=8, psa_type=psa_type, compact=compact,
+              shrink_factor=shrink, mask_h=mask[0], mask_w=mask[1],
+              normalization_factor=norm, psa_softmax=True, fused_attention=False)
+    rs = np.random.RandomState(seed)
+    x = rs.randn(2, 9, 9, 16).astype(np.float32)
+    gout = rs.randn(2, 9, 9, 32).astype(np.float32)
+    v = _randomize_bn(jm.init(jax.random.PRNGKey(seed), jnp.asarray(x), train=False), seed)
+
+    def loss(params, xx):
+        out, upd = jm.apply({"params": params, "batch_stats": v["batch_stats"]}, xx,
+                            train=True, mutable=["batch_stats"])
+        return jnp.sum(out * gout), (out, upd)
+
+    (_, (want, upd)), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        v["params"], jnp.asarray(x))
+    want, gx = np.asarray(want), np.asarray(gx)
+
+    def sd(params, stats):
+        return {k[len("psa."):]: t for k, t in state_dict_from_jax(
+            {"params": {"backbone": {}, "psa": jax.device_get(params)},
+             "batch_stats": {"backbone": {}, "psa": jax.device_get(stats)}}, "psa").items()}
+
+    m = PSA(16, 8, psa_type, compact, shrink, mask[0], mask[1], norm, True, fused).train()
+    m.load_state_dict(sd(v["params"], v["batch_stats"]), strict=True)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    out = m(xt)
+    (out * torch.from_numpy(gout).permute(0, 3, 1, 2)).sum().backward()
+
+    def close(got, ref, name):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=3e-4 * max(1e-3, np.abs(ref).max()),
+                                   err_msg=name)
+
+    close(out.detach().permute(0, 2, 3, 1).numpy(), want, "out")
+    close(xt.grad.permute(0, 2, 3, 1).numpy(), gx, "dx")
+    want_grads = sd(gp, upd["batch_stats"])
+    got_state = m.state_dict()
+    for name, p in m.named_parameters():
+        close(p.grad.numpy(), want_grads[name].numpy(), name)
+    stats = [k for k in want_grads if k.endswith(("running_mean", "running_var"))]
+    assert stats
+    for k in stats:
+        close(got_state[k].numpy(), want_grads[k].numpy(), k)
