@@ -1,0 +1,110 @@
+"""Where the tensor-core PSA kernels' time goes, on one NVIDIA GPU.
+
+No profiler of kernel internals runs on the card's machine, so this builds
+variants of ``semseg_torch/csrc/psa.cu`` with one piece of the tensor-core
+kernels removed each (the wgmma products, the exps, the loads of A, the
+operand copies, forming p, the operand pack) and times the forward and dx
+of every variant at the Cityscapes PSANet shapes (CUDA events over 20
+back-to-back launches, the library called directly). The variants' results
+are wrong by design: only their times mean anything. Builds go under
+``build/psa_ablation/``.
+
+Usage, from the repository root on a machine with the card:
+    python3 chip_probes/psa_ablation.py
+"""
+
+import ctypes
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from semseg_torch.ops import psa  # noqa: E402
+from semseg_torch.ops._build import NVCC_FLAGS, _nvcc  # noqa: E402
+
+VARIANTS = {
+    "base": [],
+    "no_wgmma": [("wgmma_m64n64k16(acc[mt], da, db);", "")],
+    "no_exp": [("expf(", "(")],
+    "no_A_loads": [("__ldg(araw + (long long)i * HW + j)", "(unsigned short)0x3F80"),
+                   ("__ldg(row + j)", "(unsigned short)0x3F80"),
+                   ("__ldg(row + j + 1)", "(unsigned short)0x3F80")],
+    "no_operand": [("      cp_async16(sa + buf * kSA + swz(r, ch), "
+                    "opn + (long long)r * HWp + k0 + ch * 8);\n", "")],
+    "no_p": [("    if (more) produce(s + 1);\n", "")],
+    "no_pack": [("  psa_pack_bf16_kernel<T><<<(unsigned)((total8 + 255) / 256), 256, 0, s>>>(\n"
+                 "      src, pack, c, hw, cp, hwp, total8);\n", "")],
+}
+OUT = ROOT / "build" / "psa_ablation"
+
+
+def build(name):
+    text = (ROOT / "semseg_torch" / "csrc" / "psa.cu").read_text()
+    for old, new in VARIANTS[name]:
+        if old not in text:
+            raise RuntimeError(f"variant {name}: {old!r} is not in psa.cu")
+        text = text.replace(old, new)
+    cu = OUT / f"{name}.cu"
+    cu.write_text(text)
+    so = OUT / f"lib{name}.so"
+    flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(so), str(cu)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-2000:]}")
+    return name, so
+
+
+def ms(fn, reps=20):
+    for _ in range(3):
+        fn()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("psa_ablation: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    OUT.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        libs = dict(pool.map(build, VARIANTS))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dev = torch.device("cuda")
+    for n, c, hw in [(8, 512, 2025), (16, 512, 2025)]:
+        g0 = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(n, c, hw, generator=g0, device=dev).to(torch.bfloat16)
+        a = (torch.randn(n, hw, hw, generator=g0, device=dev) * 3).to(torch.bfloat16)
+        g = torch.randn(n, c, hw, generator=g0, device=dev)
+        m, l = psa.psa_softmax_stats(a)
+        out = torch.empty(n, c, hw, device=dev)
+        dx = torch.empty(n, c, hw, device=dev, dtype=torch.bfloat16)
+        pack = psa._wgmma_pack(x)
+        stream = torch.cuda.current_stream().cuda_stream
+        row = []
+        for name, so in libs.items():
+            lib = ctypes.CDLL(str(so))
+            fwd, bwd = lib.semseg_psa_softmax_bmm_wgmma, lib.semseg_psa_bwd_dx_wgmma
+            for fn in (fwd, bwd):
+                fn.argtypes, fn.restype = [ptr] * 6 + [i32] * 3 + [f32, ptr], ctypes.c_int
+            t_fwd = ms(lambda: fwd(x.data_ptr(), a.data_ptr(), out.data_ptr(), None, None,
+                                   pack.data_ptr(), n, c, hw, 1.0, stream))
+            t_dx = ms(lambda: bwd(a.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                  dx.data_ptr(), pack.data_ptr(), n, c, hw, 1.0, stream))
+            row.append(f"{name} fwd {t_fwd:.4f} dx {t_dx:.4f}")
+        print(f"{(n, c, hw)} ms: " + "; ".join(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

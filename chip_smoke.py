@@ -17,44 +17,53 @@ each (12 runs after 4):
    (max abs diff and row sums within 2e-2), with both times (CUDA events,
    median of 20);
 4. PSA forward kernels vs plain: the resident and the flash kernel against
-   the plain softmax + bmm at (N, C, hw) = (8, 512, 900), (8, 512, 2025)
-   and (1, 512, 7921), bf16 and f32 operands, A = randn * 3: max abs diff
-   <= 1e-4 * max|plain| + 1e-5; ``m`` exact and ``l`` within 1e-5
-   relative for both; kernel and plain times;
+   the plain softmax + bmm at (N, C, hw) = (8, 512, 900), (8, 512, 2025),
+   (16, 512, 2025) and (1, 512, 7921), bf16 and f32 operands, A = randn *
+   3. f32 operands and the flash kernel: max abs diff <= 1e-4 * max|plain|
+   + 1e-5. bf16 operands run the resident forward on the tensor cores:
+   element by element within 2^-8 (|x| @ p) / norm + 1e-6 (``fwd_bars``)
+   and within rtol = atol = 1e-2; the SIMT resident kernel it replaced is
+   launched directly beside it and held to 1e-4. ``m`` exact and ``l``
+   within 1e-5 relative for every kernel; kernel, SIMT, plain times and
+   the bound;
 12. PSA backward kernels vs plain at the same extents: da, dx and the
    flash backward against the plain backward from the same statistics;
-   f32 within 1e-4 * max|plain| + 1e-5, bf16 within one bf16 ulp of
-   max|plain| against the plain grads rounded to bf16; kernel, plain and
-   plain-autograd times;
+   f32 within 1e-4 * max|plain| + 1e-5; bf16 dx on the tensor cores within
+   2^-7 (|g| @ p^T) / norm + one bf16 ulp of |plain| (``dx_bars``) and
+   1e-2; bf16 da, flash backward and the SIMT dx within one bf16 ulp of
+   max|plain| against the plain grads rounded to bf16; kernel, SIMT,
+   plain and plain-autograd times and the bounds;
 5. PSPNet slice: ``build_evaluator`` answers requests; each must launch the
    stitch kernel exactly twice (two chunks) and no PSA kernel; images/s;
 6. PSPNet fused vs plain stitch: argmax agreement >= 0.995, probabilities
    within 2e-2 (share of near-tied pixels printed beside);
 7. PSPNet f32: one 713x713 window's logits on the card and on the CPU,
    max relative error <= 1e-3 (catches TF32);
-8. PSANet slice: each request must launch the resident PSA kernel exactly
-   4 times (2 chunks x 2 directions), the stitch kernel twice and the
-   flash kernel never; images/s;
+8. PSANet slice: each request must launch the tensor-core resident
+   forward exactly 4 times (2 chunks x 2 directions), the stitch kernel
+   twice and no other kernel; images/s;
 9. PSANet kernel vs plain attention: one image with ``fused_attention``
    off (both sides use the fused stitch): agreement >= 0.995,
    probabilities within 2e-2;
 10. PSANet shrink 1 (f32, mask 177x177, hw 7921): one 705x705 window and
    its flip launch the flash kernel exactly twice; logits within 1e-3
    relative of the plain attention;
-11. PSANet f32: one 705x705 window through the resident kernel on the
-   card against the plain version on the CPU, 1e-3 relative;
+11. PSANet f32: one 705x705 window through the SIMT resident kernel on
+   the card against the plain version on the CPU, 1e-3 relative;
 13. PSANet50 training slice: 48 street-like 1024x2048 images with label
    PNGs, ``run`` with ``compute_dtype bfloat16``, ``batch_size 16`` (12 or
-   8 if 16 does not fit), ``epochs 1``: every step launches the resident
-   forward, da and dx twice each and nothing else; finite losses;
+   8 if 16 does not fit), ``epochs 1``: every step launches the
+   tensor-core forward and dx and the da kernel twice each and nothing
+   else; finite losses;
 14. the train step alone on a device-resident batch (2 warm-up, 5 timed
    steps, the same launches per step): seconds per step, images/s, peak
    memory; the loader's images/s; a ``torch.profiler`` window of 2 steps
-   (device busy, idle share, top kernels in ``build/chip_smoke/``);
+   (device busy, idle share, the PSA kernels' device time, top kernels in
+   ``build/chip_smoke/``);
 15. PSPNet50 bf16, 3 train steps through the same Trainer: no PSA launch;
-16. PSANet50 f32 train step, batch 2: kernels against plain attention,
-   losses within 1e-5 relative and every parameter gradient within the
-   relative bar of ``GRAD_REL``;
+16. PSANet50 f32 train step, batch 2: the SIMT forward, da and dx twice
+   each, against plain attention: losses within 1e-5 relative and every
+   parameter gradient within the relative bar of ``GRAD_REL``;
 17. the same at shrink 1 (hw 7921): the flash forward and flash backward
    twice each; gradients against plain attention;
 18. the PSA module at full width (2048 -> 512, 89x89 input, batch 2),
@@ -64,10 +73,12 @@ each (12 runs after 4):
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
-no jax: the config parser and data pipeline the training entry point
-shares with the JAX package (``semseg_tpu.config``, ``semseg_tpu.data``)
-are yaml, numpy and cv2 only, and that is checked at the end. The line before the last is the kernels' JSON record; the last line
-is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+no jax and nothing of the JAX package (the port reads configs and data
+through its own ``semseg_torch.config`` and ``semseg_torch.data``); that is
+checked at the end. The line before the last is the kernels' JSON record
+(each kernel at the shape and dtype of the path it serves, with its bound
+on an H100 SXM); the last line is ``{"ok": true, "device": {"platform":
+"gpu", "kind": ..., "count": ...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
@@ -89,7 +100,10 @@ TOL = 2e-2  # bf16 output rounding at two places + expf ulps
 PSA_REL = 1e-4  # f32 sums over up to 7921 terms, in another order than cuBLAS
 N_TIMED = 8  # timed requests per slice
 PSA_EXTENTS = (("ade20k-465", 8, 512, 900), ("cityscapes-705", 8, 512, 2025),
-               ("shrink1-705", 1, 512, 7921))
+               ("cityscapes-705-b16", 16, 512, 2025), ("shrink1-705", 1, 512, 7921))
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core
+# and f32 (outside the tensor cores) operations/s.
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 # Phases 16-17: relative L2 distance of each parameter gradient, kernels
 # against plain attention (f32 sums in another order, amplified through
 # 50+ train-mode BN layers from a random init).
@@ -107,13 +121,17 @@ def log(msg):
 
 
 def cuda_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+    """Median milliseconds of ``fn`` on the current stream (CUDA events).
+    Before each timed call the device spins for about a millisecond, so it
+    is still busy while the host enqueues ``fn``'s launches: the events then
+    time the device's work, not the wrapper's Python."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -123,16 +141,69 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 
 def kernels():
-    """The launch-counting wrappers of every kernel, by name."""
+    """The launch-counting wrappers of every kernel, by name.
+    ``psa_softmax_bmm`` and ``psa_softmax_bmm_bwd_dx`` count the SIMT
+    kernels (f32 operands); the ``_wgmma`` ones the tensor-core kernels
+    that the same entry points launch for bf16 operands."""
     from semseg_torch.ops import psa
     from semseg_torch.ops.stitch import upsample_softmax_flip
 
     return {"upsample_softmax_flip": upsample_softmax_flip,
             "psa_softmax_bmm": psa.psa_softmax_bmm,
+            "psa_softmax_bmm_wgmma": psa.psa_softmax_bmm_wgmma,
             "psa_softmax_bmm_flash": psa.psa_softmax_bmm_flash,
             "psa_softmax_bmm_bwd_da": psa.psa_softmax_bmm_bwd_da,
             "psa_softmax_bmm_bwd_dx": psa.psa_softmax_bmm_bwd_dx,
+            "psa_softmax_bmm_bwd_dx_wgmma": psa.psa_softmax_bmm_bwd_dx_wgmma,
             "psa_softmax_bmm_flash_bwd": psa.psa_softmax_bmm_flash_bwd}
+
+
+def bound(nbytes, flops, dtype):
+    """``(ms, "bytes" or "operations")``: the least time for a function
+    that moves ``nbytes`` (each input read once, each output written once)
+    and does ``flops`` operations of ``dtype`` (bf16 on the tensor cores,
+    f32 outside them), on an H100 SXM."""
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    op_ms = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def psa_fwd_bound(n, c, hw, dtype):
+    """The PSA forward: reads x and A, writes f32 out; 2 N C hw^2 FLOP."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    return bound(n * hw * hw * esz + n * c * hw * (esz + 4), 2 * n * c * hw * hw, dtype)
+
+
+def psa_dx_bound(n, c, hw, dtype):
+    """dx: reads A, f32 g, m and l, writes dx in x's dtype; 2 N C hw^2."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    return bound(n * hw * hw * esz + n * c * hw * (4 + esz) + 2 * n * hw * 4,
+                 2 * n * c * hw * hw, dtype)
+
+
+def psa_da_bound(n, c, hw, dtype):
+    """da: reads x, A, f32 g and out, m and l, writes da; 2 N C hw^2."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    return bound(2 * n * hw * hw * esz + n * c * hw * (esz + 8) + 2 * n * hw * 4,
+                 2 * n * c * hw * hw, dtype)
+
+
+def fwd_bars(x, a, norm=1.0):
+    """The tensor-core forward's bar, element by element: one bf16 rounding
+    of p (2^-9 relative) with a factor 2 for the order of the f32 sums,
+    2^-8 (|x| @ p) / norm + 1e-6."""
+    p = torch.softmax(a.float(), dim=1)
+    return 2.0 ** -8 * torch.bmm(x.float().abs(), p) / norm + 1e-6
+
+
+def dx_bars(a, g, m, l, dx32, norm=1.0):
+    """The tensor-core dx's bar: g and p each rounded to bf16, 2^-7 (|g| @
+    p^T) / norm, plus one bf16 ulp of |plain| for the bf16 output."""
+    from semseg_torch.ops.psa import _probs
+
+    p = _probs(a, m, l)
+    ulp = 2.0 ** (torch.floor(torch.log2(dx32.abs().clamp_min(1e-30))) - 7)
+    return 2.0 ** -7 * torch.bmm(g.abs(), p.transpose(1, 2)) / norm + ulp
 
 
 def launches(**nonzero):
@@ -209,9 +280,13 @@ def ptxas_summary(build_log):
         if m:
             mangled = m.group(1)
             k = re.search(r"[a-z_]+_kernel", mangled)
+            flags = (("Lb0E", "fwd"), ("Lb1E", "dx")) if "wgmma" in mangled else (
+                ("Lb0E", "resident"), ("Lb1E", "flash"))
             tags = [tag for pat, tag in (("13__nv_bfloat16", "bf16"), ("kernelIf", "f32"),
-                                         ("Lb0E", "resident"), ("Lb1E", "flash"))
-                    if pat in mangled]
+                                         *flags) if pat in mangled]
+            mt = re.search(r"wgmma_kernelILi(\d)E", mangled)
+            if mt:
+                tags.insert(0, f"mt{mt.group(1)}")
             cur = {"name": (k.group(0) if k else mangled) + f"<{','.join(tags)}>"}
             out.append(cur)
             continue
@@ -271,13 +346,15 @@ def phase_stitch_kernel(dev):
 
 
 def phase_psa_kernels(dev):
-    """Both PSA kernels against the plain version at the recipe extents."""
-    from semseg_torch.ops.psa import (
-        psa_softmax_bmm,
-        psa_softmax_bmm_flash,
-        psa_softmax_bmm_reference,
-        psa_softmax_stats,
-    )
+    """The PSA forward kernels against the plain version at the recipe
+    extents (phase 4). f32 operands: the SIMT resident kernel and the flash
+    kernel within ``PSA_REL``. bf16 operands: the tensor-core resident
+    kernel within ``fwd_bars``, element by element, and within the JAX
+    package's bf16 license (rtol = atol = 1e-2); the flash kernel and the
+    SIMT resident kernel it replaced (launched directly) within
+    ``PSA_REL``. ``m`` exact and ``l`` within 1e-5 relative for every
+    kernel that writes them; two tensor-core calls bit-identical."""
+    from semseg_torch.ops import psa
 
     results = {}
     for label, n, c, hw in PSA_EXTENTS:
@@ -285,33 +362,51 @@ def phase_psa_kernels(dev):
             g = torch.Generator(device=dev).manual_seed(0)
             x = torch.randn(n, c, hw, generator=g, device=dev).to(dt)
             a = (torch.randn(n, hw, hw, generator=g, device=dev) * 3).to(dt)
+            bf16 = dt == torch.bfloat16
             with torch.inference_mode():
-                want = psa_softmax_bmm_reference(x, a)
-                m_ref, l_ref = psa_softmax_stats(a)
-                res = psa_softmax_bmm(x, a)
-                fl, m, l = psa_softmax_bmm_flash(x, a, return_stats=True)
+                want = psa.psa_softmax_bmm_reference(x, a)
+                m_ref, l_ref = psa.psa_softmax_stats(a)
+                res, rm, rl = psa.psa_softmax_bmm(x, a, return_stats=True)
+                fl, m, l = psa.psa_softmax_bmm_flash(x, a, return_stats=True)
+                simt = psa._forward_simt(x, a, 1.0, False, False) if bf16 else res
                 torch.cuda.synchronize()
                 bar = PSA_REL * want.abs().max().item() + 1e-5
                 err_r = (res - want).abs().max().item()
                 err_f = (fl - want).abs().max().item()
-                m_exact = torch.equal(m, m_ref)
+                err_s = (simt - want).abs().max().item()
+                stats_ok = all(torch.equal(mm, m_ref) for mm in (m, rm)) and all(
+                    ((ll - l_ref).abs() / l_ref).max().item() <= 1e-5 for ll in (l, rl))
                 l_rel = ((l - l_ref).abs() / l_ref).max().item()
-                if not (err_r <= bar and err_f <= bar and m_exact and l_rel <= 1e-5):
+                if bf16:
+                    ratio = ((res - want).abs() / fwd_bars(x, a)).max().item()
+                    license_ok = torch.allclose(res, want, rtol=1e-2, atol=1e-2)
+                    same = torch.equal(res, psa.psa_softmax_bmm(x, a))
+                    res_ok = ratio <= 1.0 and license_ok and same
+                else:
+                    ratio, res_ok = err_r / bar, err_r <= bar
+                if not (res_ok and err_f <= bar and err_s <= bar and stats_ok):
                     raise AssertionError(
-                        f"psa {label} {dt}: resident err {err_r}, flash err {err_f} "
-                        f"(bar {bar}), m exact {m_exact}, l rel {l_rel}")
-                ms_r = cuda_ms(lambda: psa_softmax_bmm(x, a))
-                ms_f = cuda_ms(lambda: psa_softmax_bmm_flash(x, a))
-                plain_ms = cuda_ms(lambda: psa_softmax_bmm_reference(x, a))
-            tflops = 2 * n * c * hw * hw / 1e9
-            dname = "bf16" if dt == torch.bfloat16 else "f32"
-            log(f"[4 psa kernels] {label} (N,C,hw)=({n},{c},{hw}) {dname}: bar {bar:.3e}; "
-                f"resident err {err_r:.3e} {ms_r:.4f} ms ({tflops / ms_r:.1f} TFLOP/s); "
-                f"flash err {err_f:.3e} {ms_f:.4f} ms ({tflops / ms_f:.1f} TFLOP/s), "
-                f"m exact, l rel {l_rel:.2e}; plain {plain_ms:.4f} ms")
-            results[(label, dname)] = dict(err_r=err_r, err_f=err_f, ms_r=ms_r,
-                                           ms_f=ms_f, plain_ms=plain_ms)
-            del x, a, want, res, fl, m, l, m_ref, l_ref
+                        f"psa {label} {dt}: resident err {err_r} (of its bar {ratio}), "
+                        f"SIMT err {err_s}, flash err {err_f} (bar {bar}), stats ok {stats_ok}")
+                ms_r = cuda_ms(lambda: psa.psa_softmax_bmm(x, a))
+                ms_s = cuda_ms(lambda: psa._forward_simt(x, a, 1.0, False, False)) if bf16 else ms_r
+                ms_f = cuda_ms(lambda: psa.psa_softmax_bmm_flash(x, a))
+                plain_ms = cuda_ms(lambda: psa.psa_softmax_bmm_reference(x, a))
+            gflop = 2 * n * c * hw * hw / 1e9
+            bound_ms, bound_by = psa_fwd_bound(n, c, hw, dt)
+            dname = "bf16" if bf16 else "f32"
+            kind = "tensor-core" if bf16 else "SIMT"
+            log(f"[4 psa kernels] {label} (N,C,hw)=({n},{c},{hw}) {dname}: resident ({kind}) "
+                f"err {err_r:.3e} ({ratio:.3f} of its bar) {ms_r:.4f} ms "
+                f"({gflop / ms_r:.1f} TFLOP/s; bound {bound_ms:.4f} ms by {bound_by})"
+                + (f"; SIMT resident err {err_s:.3e} {ms_s:.4f} ms" if bf16 else "")
+                + f"; flash err {err_f:.3e} {ms_f:.4f} ms ({gflop / ms_f:.1f} TFLOP/s), "
+                f"m exact, l rel {l_rel:.2e} (PSA_REL bar {bar:.3e}); plain {plain_ms:.4f} ms")
+            results[(label, dname)] = dict(err_r=err_r, err_f=err_f, err_s=err_s, ratio=ratio,
+                                           ms_r=ms_r, ms_s=ms_s, ms_f=ms_f, plain_ms=plain_ms,
+                                           bound=(bound_ms, bound_by))
+            del x, a, want, res, rm, rl, fl, m, l, m_ref, l_ref, simt
+            torch.cuda.empty_cache()
     return results
 
 
@@ -484,8 +579,17 @@ def phase_shrink1(dev, image):
 
 
 def phase_psa_backward(dev):
-    """The three backward kernels against the plain backward at the recipe
-    extents, from the kernels' own forward statistics (phase 12)."""
+    """The backward kernels against the plain backward at the recipe
+    extents, from the kernels' own forward statistics (phase 12). f32: da,
+    dx (SIMT) and the flash backward within ``PSA_REL``. bf16: dx on the
+    tensor cores within ``dx_bars`` against the f32 plain dx, element by
+    element; da, the flash backward and the SIMT dx it replaced (launched
+    directly) within one bf16 ulp of max|plain| against the plain grads
+    rounded to bf16. Printed beside, not a gate: the largest |err| / (1e-2
+    + 1e-2 |plain|) of both bf16 dx kernels, the JAX package's bf16 license
+    (``tests/test_psa_pallas.py``), which its tests apply at A = randn and
+    small hw; here A = randn * 3 makes |dx| larger, and the bf16 output's
+    own rounding takes a share of it."""
     from semseg_torch.ops import psa
 
     def bf16_ulp(v):
@@ -494,6 +598,7 @@ def phase_psa_backward(dev):
     results = {}
     for label, n, c, hw in PSA_EXTENTS:
         for dt in (torch.bfloat16, torch.float32):
+            bf16 = dt == torch.bfloat16
             g0 = torch.Generator(device=dev).manual_seed(1)
             x = torch.randn(n, c, hw, generator=g0, device=dev).to(dt)
             a = (torch.randn(n, hw, hw, generator=g0, device=dev) * 3).to(dt)
@@ -503,49 +608,68 @@ def phase_psa_backward(dev):
                 fout, fm, fl = psa.psa_softmax_bmm_flash(x, a, return_stats=True)
                 da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out)
                 dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)
+                sdx = psa._bwd_dx_simt(x, a, g, m, l, 1.0) if bf16 else dx
                 fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout)
                 torch.cuda.synchronize()
                 dx32, da32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, m, l, out)
-                if dt == torch.float32:
+                if not bf16:
                     want_dx, want_da = dx32, da32
                     bar_dx = PSA_REL * dx32.abs().max().item() + 1e-5
                     bar_da = PSA_REL * da32.abs().max().item() + 1e-5
+                    dx_ratio = (dx - dx32).abs().max().item() / bar_dx
                 else:  # one bf16 ulp of max|plain|, against plain rounded to bf16
                     want_dx, want_da = dx32.to(dt).float(), da32.to(dt).float()
                     bar_dx = bf16_ulp(dx32.abs().max().item())
                     bar_da = bf16_ulp(da32.abs().max().item())
+                    dx_ratio = ((dx.float() - dx32).abs() / dx_bars(a, g, m, l, dx32)).max().item()
+                    if not dx_ratio <= 1.0:
+                        raise AssertionError(f"tensor-core dx {label}: {dx_ratio} of its bar")
+                    lic = {k: ((v.float() - dx32).abs() / (1e-2 + 1e-2 * dx32.abs())).max().item()
+                           for k, v in (("tensor-core", dx), ("SIMT", sdx))}
+                    if not torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)):
+                        raise AssertionError(f"tensor-core dx {label}: two calls differ")
                 errs = {"da": (da.float() - want_da).abs().max().item(),
-                        "dx": (dx.float() - want_dx).abs().max().item(),
+                        "dx": (dx.float() - (dx32 if bf16 else want_dx)).abs().max().item(),
+                        "simt_dx": (sdx.float() - want_dx).abs().max().item(),
                         "flash_da": (fda.float() - want_da).abs().max().item(),
                         "flash_dx": (fdx.float() - want_dx).abs().max().item()}
                 del dx32, da32, want_dx, want_da
-                bars = {"da": bar_da, "dx": bar_dx, "flash_da": bar_da, "flash_dx": bar_dx}
-                if any(errs[k] > bars[k] for k in errs):
+                bars = {"da": bar_da, "simt_dx": bar_dx, "flash_da": bar_da, "flash_dx": bar_dx}
+                if any(errs[k] > bars[k] for k in bars) or (not bf16 and dx_ratio > 1.0):
                     raise AssertionError(f"psa backward {label} {dt}: errors {errs}, bars {bars}")
                 if not (da.dtype == fda.dtype == dx.dtype == fdx.dtype == dt):
                     raise AssertionError("backward kernels did not return the primal dtypes")
                 ms_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out))
                 ms_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l))
+                ms_sdx = cuda_ms(lambda: psa._bwd_dx_simt(x, a, g, m, l, 1.0)) if bf16 else ms_dx
                 ms_f = cuda_ms(lambda: psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout))
                 plain_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out))
                 plain_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l))
-                del da, dx, fda, fdx
+                del da, dx, sdx, fda, fdx
             xr, ar = x.detach().requires_grad_(), a.detach().requires_grad_()
             o = psa.psa_softmax_bmm_reference(xr, ar)
             autograd_ms = cuda_ms(lambda: torch.autograd.grad(o, (xr, ar), g, retain_graph=True))
             del o, xr, ar
             gflop = 2 * n * c * hw * hw / 1e9
-            dname = "bf16" if dt == torch.bfloat16 else "f32"
+            dname = "bf16" if bf16 else "f32"
+            dx_bound, dx_by = psa_dx_bound(n, c, hw, dt)
+            da_bound, da_by = psa_da_bound(n, c, hw, dt)
             log(f"[12 psa backward] {label} (N,C,hw)=({n},{c},{hw}) {dname}: errors "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                + f" (bars da {bar_da:.3e}, dx {bar_dx:.3e}); da {ms_da:.4f} ms "
-                f"({gflop / ms_da:.1f} TFLOP/s), dx {ms_dx:.4f} ms ({gflop / ms_dx:.1f}), "
-                f"flash bwd {ms_f:.4f} ms ({2 * gflop / ms_f:.1f}); plain da {plain_da:.4f}, "
+                + f" (bars da {bar_da:.3e}, dx {bar_dx:.3e}; dx at {dx_ratio:.3f} of its bar"
+                + (f"; 1e-2 license ratio tensor-core dx {lic['tensor-core']:.3f}, SIMT dx "
+                   f"{lic['SIMT']:.3f}" if bf16 else "") + "); "
+                f"da {ms_da:.4f} ms ({gflop / ms_da:.1f} TFLOP/s; bound {da_bound:.4f} by {da_by}), "
+                f"dx ({'tensor-core' if bf16 else 'SIMT'}) {ms_dx:.4f} ms ({gflop / ms_dx:.1f}; "
+                f"bound {dx_bound:.4f} by {dx_by})"
+                + (f", SIMT dx {ms_sdx:.4f} ms ({gflop / ms_sdx:.1f})" if bf16 else "")
+                + f", flash bwd {ms_f:.4f} ms ({2 * gflop / ms_f:.1f}); plain da {plain_da:.4f}, "
                 f"dx {plain_dx:.4f}, da+dx {plain_da + plain_dx:.4f} ms; autograd of the plain "
                 f"forward {autograd_ms:.4f} ms")
-            results[(label, dname)] = dict(errs=errs, ms_da=ms_da, ms_dx=ms_dx, ms_f=ms_f,
-                                           plain_da=plain_da, plain_dx=plain_dx,
-                                           autograd_ms=autograd_ms)
+            results[(label, dname)] = dict(errs=errs, ms_da=ms_da, ms_dx=ms_dx, ms_sdx=ms_sdx,
+                                           ms_f=ms_f, plain_da=plain_da, plain_dx=plain_dx,
+                                           autograd_ms=autograd_ms, dx_bound=(dx_bound, dx_by),
+                                           da_bound=(da_bound, da_by))
             del x, a, g, out, m, l, fout, fm, fl
             torch.cuda.empty_cache()
     return results
@@ -586,7 +710,11 @@ def train_cfg(root, batch_size):
         "epochs", "1", "print_freq", "1", "compute_dtype", "bfloat16"])
 
 
-TRAIN_STEP = dict(psa_softmax_bmm=2, psa_softmax_bmm_bwd_da=2, psa_softmax_bmm_bwd_dx=2)
+# Per train step, two directions: bf16 runs the tensor-core forward and dx,
+# f32 the SIMT ones; da is SIMT for both.
+TRAIN_STEP = dict(psa_softmax_bmm_wgmma=2, psa_softmax_bmm_bwd_da=2,
+                  psa_softmax_bmm_bwd_dx_wgmma=2)
+F32_TRAIN_STEP = dict(psa_softmax_bmm=2, psa_softmax_bmm_bwd_da=2, psa_softmax_bmm_bwd_dx=2)
 
 
 def phase_train_slice(dev):
@@ -672,7 +800,16 @@ def device_profile(fn, path):
         table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(table)
-    return busy / 1e3, span / 1e3, 1.0 - busy / span, table
+    psa_rows = {}
+    for ev in prof.key_averages():
+        if "psa_" in ev.key:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            name = re.search(r"psa_[a-z0-9_]+", ev.key).group(0)
+            ms, count = psa_rows.get(name, (0.0, 0))
+            psa_rows[name] = (ms + dev_us / 1e3, count + ev.count)
+    return busy / 1e3, span / 1e3, 1.0 - busy / span, table, psa_rows
 
 
 def phase_train_timing(cfg, res, dev, batch):
@@ -714,7 +851,7 @@ def phase_train_timing(cfg, res, dev, batch):
         for _ in range(2):
             tr.step(images, labels)
 
-    busy, span, idle, table = device_profile(two_steps, OUT_DIR / "train_profile.txt")
+    busy, span, idle, table, psa_rows = device_profile(two_steps, OUT_DIR / "train_profile.txt")
     top = [ln for ln in table.splitlines()[3:11]]
     log(f"[14 train step] PSANet50 bf16 batch {batch} on a device-resident batch: "
         f"{step_s:.4f} s/step = {batch / step_s:.3f} images/s, peak {peak:.2f} GiB, "
@@ -724,6 +861,11 @@ def phase_train_timing(cfg, res, dev, batch):
         f"{idle:.4f} (table in {OUT_DIR / 'train_profile.txt'})")
     for ln in top:
         log(f"[14 train step]   {ln.strip()[:150]}")
+    psa_ms = sum(ms for ms, _ in psa_rows.values())
+    log(f"[14 train step] PSA kernels over the 2 profiled steps: {psa_ms:.3f} ms of {busy:.2f} "
+        f"ms device time ({psa_ms / busy:.4f}): " + ", ".join(
+            f"{k} {ms:.3f} ms / {cnt} launches = {ms / max(cnt, 1):.4f} ms each"
+            for k, (ms, cnt) in sorted(psa_rows.items())))
     return dict(step_s=step_s, images_per_s=batch / step_s, peak_gib=peak,
                 loader_images_per_s=loader_rate, idle=idle)
 
@@ -853,7 +995,7 @@ def phase_psa_module_f32(dev):
         (out * gout.to(device)).sum().backward()
         if device.type == "cuda":
             torch.cuda.synchronize()
-            check_counts("PSA module", read_counts(), launches(**TRAIN_STEP))
+            check_counts("PSA module", read_counts(), launches(**F32_TRAIN_STEP))
         return {"out": out.detach().cpu(), "dx": xd.grad.cpu(),
                 **{k: p.grad.cpu() for k, p in m.named_parameters()}}
 
@@ -909,7 +1051,7 @@ def main():
     torch.cuda.empty_cache()
 
     ev, psa_counts, _ = phase_slice(8, "PSANet50", psanet_cfg(), dev, images, launches(
-        upsample_softmax_flip=2, psa_softmax_bmm=4))
+        upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4))
     phase_psa_vs_plain(ev, images[0])
     shrink1_counts = phase_shrink1(dev, images[2])
     phase_f32(11, "PSANet50", psanet_cfg(), dev, ev, images[1], launches(psa_softmax_bmm=2))
@@ -921,16 +1063,16 @@ def main():
     del res
     torch.cuda.empty_cache()
     psp_train_counts = phase_pspnet_train(dev)
-    f32_counts = phase_grad_vs_plain(16, dev, 2, TRAIN_STEP)
+    f32_counts = phase_grad_vs_plain(16, dev, 2, F32_TRAIN_STEP)
     shrink1_train_counts = phase_grad_vs_plain(
         17, dev, 1, dict(psa_softmax_bmm_flash=2, psa_softmax_bmm_flash_bwd=2))
     phase_psa_module_f32(dev)
 
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
     if loaded:
-        raise AssertionError(f"jax modules were imported: {loaded}")
-    shared = sorted(m for m in sys.modules if m.split(".")[0] == "semseg_tpu")
-    log(f"[summary] no jax module loaded; shared host modules: {shared}; "
+        raise AssertionError(f"jax or JAX-package modules were imported: {loaded}")
+    log(f"[summary] no jax and no semseg_tpu module loaded; "
         f"train {batch}: {timing['images_per_s']:.3f} images/s, {timing['peak_gib']:.2f} GiB"
         + (f"; {'; '.join(notes)}" if notes else ""))
 
@@ -939,36 +1081,59 @@ def main():
                "pspnet_train_steps": psp_train_counts, "psanet_f32_train_step": f32_counts,
                "psanet_shrink1_train_step": shrink1_train_counts}
     city = stitch_k["psanet-cityscapes"]
-    res_fwd = psa_k[("cityscapes-705", "bf16")]
+    fwd16 = psa_k[("cityscapes-705", "bf16")]
+    fwd32 = psa_k[("cityscapes-705", "f32")]
     flash = psa_k[("shrink1-705", "f32")]
-    bwd = bwd_k[("cityscapes-705", "bf16")]
+    bwd16 = bwd_k[("cityscapes-705", "bf16")]
+    bwd32 = bwd_k[("cityscapes-705", "f32")]
     fbwd = bwd_k[("shrink1-705", "f32")]
+    # stitch [4,2,19,89,89] bf16 -> [4,19,705,705] bf16: bytes in and out;
+    # per output about 20 f32 operations (two bilinear taps of 3 lerps, exp,
+    # sums, the flip average).
+    stitch_bound = bound(4 * 2 * 19 * 89 * 89 * 2 + 4 * 19 * 705 * 705 * 2,
+                         20 * 4 * 19 * 705 * 705, torch.float32)
+    f32 = torch.float32
+    # (name, source, TPU kernel, launches on the path it serves, error, ms,
+    # plain ms, bound): each at the shape and dtype of its main path.
     records = [
         ("upsample_softmax_flip", "semseg_torch/csrc/stitch.cu",
          "semseg_tpu/ops/stitch_pallas.py:131", psa_counts, city["max_abs_err"],
-         city["ms"], city["plain_ms"]),
+         city["ms"], city["plain_ms"], stitch_bound),
+        ("psa_softmax_bmm_wgmma", "semseg_torch/csrc/psa.cu",
+         "semseg_tpu/ops/psa_pallas.py:48", psa_counts, fwd16["err_r"], fwd16["ms_r"],
+         fwd16["plain_ms"], fwd16["bound"]),
         ("psa_softmax_bmm", "semseg_torch/csrc/psa.cu",
-         "semseg_tpu/ops/psa_pallas.py:48", psa_counts, res_fwd["err_r"], res_fwd["ms_r"],
-         res_fwd["plain_ms"]),
+         "semseg_tpu/ops/psa_pallas.py:48", f32_counts, fwd32["err_r"], fwd32["ms_r"],
+         fwd32["plain_ms"], fwd32["bound"]),
         ("psa_softmax_bmm_flash", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:303", shrink1_counts, flash["err_f"],
-         flash["ms_f"], flash["plain_ms"]),
+         flash["ms_f"], flash["plain_ms"], psa_fwd_bound(1, 512, 7921, f32)),
         ("psa_softmax_bmm_bwd_da", "semseg_torch/csrc/psa.cu",
-         "semseg_tpu/ops/psa_pallas.py:125", train_counts, bwd["errs"]["da"], bwd["ms_da"],
-         bwd["plain_da"]),
+         "semseg_tpu/ops/psa_pallas.py:125", train_counts, bwd16["errs"]["da"],
+         bwd16["ms_da"], bwd16["plain_da"], bwd16["da_bound"]),
+        ("psa_softmax_bmm_bwd_dx_wgmma", "semseg_torch/csrc/psa.cu",
+         "semseg_tpu/ops/psa_pallas.py:140", train_counts, bwd16["errs"]["dx"],
+         bwd16["ms_dx"], bwd16["plain_dx"], bwd16["dx_bound"]),
         ("psa_softmax_bmm_bwd_dx", "semseg_torch/csrc/psa.cu",
-         "semseg_tpu/ops/psa_pallas.py:140", train_counts, bwd["errs"]["dx"], bwd["ms_dx"],
-         bwd["plain_dx"]),
+         "semseg_tpu/ops/psa_pallas.py:140", f32_counts, bwd32["errs"]["dx"],
+         bwd32["ms_dx"], bwd32["plain_dx"], bwd32["dx_bound"]),
         ("psa_softmax_bmm_flash_bwd", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:383", shrink1_train_counts,
          max(fbwd["errs"]["flash_da"], fbwd["errs"]["flash_dx"]), fbwd["ms_f"],
-         fbwd["plain_da"] + fbwd["plain_dx"]),
+         fbwd["plain_da"] + fbwd["plain_dx"],
+         bound(2 * 7921 ** 2 * 4 + 4 * 512 * 7921 * 4, 4 * 512 * 7921 ** 2, f32)),
     ]
+    missing = [k for k, *_, counts, _e, _m, _p, _b in records if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their paths: {missing}")
+    # No single PyTorch call computes any of these functions (each fuses a
+    # softmax, or an upsample and a softmax, with a product): library_ms null.
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": counts[k], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
         "launches_by_path": {p: c[k] for p, c in by_path.items()},
-    } for k, src, rep, counts, err, ms, plain_ms in records]}))
+    } for k, src, rep, counts, err, ms, plain_ms, bnd in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

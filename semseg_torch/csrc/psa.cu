@@ -5,9 +5,12 @@
 //     p[n, :, j] = softmax_i(A[n, :, j]),  m = max_i A, l = sum_i exp(A - m)
 //
 // x is [N, C, HW], A is [N, HW, HW] (both bf16 or both f32), out is f32
-// [N, C, HW]. All math is f32 on the CUDA cores (plain FMAs), whatever the
-// operand dtype: the JAX contract holds bf16 operands to the f32 result on
-// the same bf16 values, so tensor cores (p rounded to bf16) are not used.
+// [N, C, HW]. The operand dtype picks the precision, as the TPU kernels'
+// _precision_for does (psa_pallas.py:75-81): the SIMT kernels below do all
+// math in f32 on the CUDA cores (plain FMAs) and serve f32 operands (the
+// resident forward and dx) or both dtypes (the flash kernels and da); for
+// bf16 operands the resident forward and dx run on the tensor cores with p
+// rounded to bf16 (psa_wgmma_kernel, in the second part of this file).
 //
 // Replaces (semseg_tpu/ops/psa_pallas.py):
 // - semseg_psa_softmax_bmm (resident forward) -> _fwd_kernel (:48): an
@@ -67,8 +70,9 @@
 //   atomics and no C-sized shared memory (any C works).
 // The exps cost HW * HW * ceil(C / 128) per forward launch (x2 for resident)
 // and HW * HW per backward launch, about 1 % of the FMAs at C = 512. Double
-// buffering, wider register tiles and the tensor cores are left for later
-// work.
+// buffering and wider register tiles are left for later work. The resident
+// forward and dx kernels of this part serve f32 operands only; the wrappers
+// send bf16 ones to the tensor-core kernels (second part of this file).
 //
 // Interface: plain C, bound from Python with ctypes. Every launch goes on
 // the caller's stream, does not synchronise and allocates nothing; the
@@ -77,6 +81,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -518,6 +523,478 @@ psa_flash_bwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core kernels for bf16 operands: the resident forward and dx.
+//
+// They replace, for bf16 operands, the TPU kernels
+// - _fwd_kernel (psa_pallas.py:48, pallas_call :95): psa_wgmma_kernel<kMT, false>;
+// - _bwd_dx_kernel (psa_pallas.py:140, pallas_call :197): psa_wgmma_kernel<kMT, true>.
+// f32 operands keep the SIMT kernels above. This is the TPU kernels' own
+// rule (_precision_for, psa_pallas.py:75-81): f32 operands run at HIGHEST
+// precision; bf16 operands at DEFAULT, one bf16 MXU pass, so p (and g for
+// dx) is rounded to bf16 and the sums are f32. Here that product runs on
+// Hopper's tensor cores: wgmma m64n64k16, bf16 x bf16 -> f32, both operands
+// K-major in shared memory in the 128-byte swizzle.
+//
+// Bound on an H100 SXM at the Cityscapes PSANet shape (N, C, hw) =
+// (8, 512, 2025): the product is 2 N C hw^2 = 33.6 GFLOP, 0.034 ms at 989
+// TFLOP/s bf16; the bytes take as long at 3.35 TB/s: 115.4 MB for the
+// forward (A 65.6 MB bf16, x 16.6 MB, the f32 output 33.2 MB), 115.5 MB
+// for dx (A, f32 g 33.2 MB, m and l, the bf16 output 16.6 MB). The SIMT
+// kernels ran the same product at 17-25 TFLOP/s on f32 FMAs, with every p
+// recomputed by four channel-tile blocks.
+//
+// Design. A block owns 64 columns of the output (query columns j for the
+// forward, source rows i for dx) and up to 512 channels: two warpgroups,
+// each with kMT accumulators of 64 x 64 f32 (kMT = 4 at C = 512, 128
+// registers a thread). So each p is formed once and A's strip is read once
+// per pass. K runs in stages of 64 (source rows i for the forward, query
+// columns j for dx), double-buffered in shared memory: while the tensor
+// cores work on stage s, the threads form stage s + 1's p from A values
+// loaded into registers a stage earlier, round it to bf16 and store it as
+// the B operand, then issue the loads of stage s + 2; cp.async brings stage
+// s + 1 of the other operand.
+// - The other operand (x for the forward, g for dx) is first packed by
+//   psa_pack_bf16_kernel into a bf16 [N, Cp, HWp] copy, zero-padded to
+//   whole tiles (HWp a multiple of 64, Cp of 128 kMT). At hw = 2025 a row of
+//   x starts only 2-byte aligned and a row of g is 8100 bytes long, so no
+//   16-byte copy (cp.async or TMA) can read them in place, and staging f32 g
+//   for a 512-channel block would not fit in shared memory. The pack also
+//   does dx's rounding of g to bf16. It moves 33 MB (forward) or 50 MB (dx)
+//   at N = 8.
+// - Forward B operand, p[i, j] with n = j, k = i: A's rows run along j, so
+//   a thread loads 16 consecutive source rows of one column (lanes along j:
+//   coalesced) and stores them as two 16-byte chunks of row j, which is
+//   conflict-free in the swizzle.
+// - dx B operand, p[i, j] with n = i, k = j: A's own layout; a lane loads a
+//   pair of columns and stores one 4-byte word, conflict-free.
+// - The forward's softmax is online, as in the TPU's flash kernel: per
+//   stage the four threads of a column merge their maxima in shared memory,
+//   p = exp(a - m_running) (at most 1, so its bf16 rounding is 2^-9
+//   relative as before), and the accumulators are rescaled by exp(m_old -
+//   m_new) before the stage's products; the column sums divide in the
+//   epilogue, which writes m and l when asked. So A is read once. (A first
+//   pass for the exact max and sum, as the SIMT kernel has, is
+//   latency-bound with eight warps on an SM: the forward ran 0.27 ms with
+//   it and 0.22 ms without, at (8, 512, 2025) on an H100.) dx takes m and
+//   l from the forward.
+// - Epilogue: the accumulators, times the column factor, go through shared
+//   memory so that the output (f32 for the forward, bf16 for dx, the
+//   caller's dtype) is written along its rows, coalesced.
+// Edges: source rows and columns past hw give p = 0 (loaded as -inf);
+// padded channels and columns are masked on store. Any C and hw. Nothing
+// carries between blocks: two calls give bit-identical results.
+
+namespace tc {
+
+constexpr int kTile = 64;                   // N columns a block; K depth a stage
+constexpr int kRow = 128;                   // bytes of one 64-element bf16 row
+constexpr int kStageB = kTile * kRow;       // the B operand's stage, 8 KB
+constexpr int kOutStride = kTile + 8;       // f32 epilogue row stride: conflict-free
+constexpr unsigned short kNegInf = 0xFF80;  // bf16 -inf: p = 0
+
+// The forward's online softmax: per-stage column max partials (at the end,
+// the column sum partials), the per-stage rescale factors by stage parity,
+// and the epilogue's per-column factor.
+struct Online {
+  float red[kThreads / kTile][kTile];
+  float alpha[2][kTile];
+  float scale[kTile];
+};
+
+// Bytes of the A operand's stage (both warpgroups' rows) and of the whole
+// dynamic shared memory (1 KB of slack for the 1024-byte alignment that
+// the swizzle needs).
+__host__ __device__ constexpr int stage_a(int mt) { return 2 * mt * 64 * kRow; }
+__host__ __device__ constexpr int smem_bytes(int mt) {
+  return 1024 + 2 * (stage_a(mt) + kStageB) + (int)sizeof(Online);
+}
+static_assert(4 * 128 * kOutStride * 4 <= 2 * (stage_a(4) + kStageB),
+              "the epilogue staging fits in the operand stages");
+
+// M tiles of 64 channels per warpgroup: a block covers 128 kMT channels.
+inline int m_tiles(int c) { return c <= 128 ? 1 : c <= 256 ? 2 : 4; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Offset of 16-byte chunk `chunk` (0..7) of row `row` in a tile of
+// 128-byte rows in the 128-byte swizzle (wgmma layout type 1).
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return row * kRow + ((chunk ^ (row & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile at
+// shared address `addr`: 8-row groups 1024 bytes apart; the leading offset
+// is unused for this layout. A K step of 16 adds 32 bytes to `addr`.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's shared-memory writes visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator accesses across wgmma.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], both read from shared memory.
+// Thread t of the warpgroup holds d[4 q + 2 h + e] = row 16 (t / 32) +
+// (t % 32) / 4 + 8 h, column 8 q + 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float bf16_bits(unsigned short b) {
+  return __uint_as_float((uint32_t)b << 16);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// src [N, C, HW] (bf16 or f32) -> dst bf16 [N, Cp, HWp], rounded to
+// nearest even, zero outside C x HW. One thread per 8 outputs (16 bytes).
+template <typename T>
+__global__ void psa_pack_bf16_kernel(const T* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+                                     int C, int HW, int Cp, int HWp, long long total8) {
+  const long long id = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (id >= total8) return;
+  const int k8 = (int)(id % (HWp / 8));
+  const long long row = id / (HWp / 8);
+  const int c = (int)(row % Cp);
+  const long long n = row / Cp;
+  const T* s = src + (n * C + c) * (long long)HW;
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = k8 * 8 + 2 * e;
+    const float lo = (c < C && i < HW) ? ld(s + i) : 0.f;
+    const float hi = (c < C && i + 1 < HW) ? ld(s + i + 1) : 0.f;
+    w[e] = pack_bf16x2(lo, hi);
+  }
+  *reinterpret_cast<uint4*>(dst + id * 8) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Both tensor-core kernels. kDx = false: the resident forward; the block's
+// tile is 64 query columns, K runs over source rows, the operand is packed
+// x, out is f32 and m_out, l_out (when not null) get the column max and
+// sum. kDx = true: dx; the tile is 64 source rows, K runs over query
+// columns, the operand is packed g, m_in and l_in are the forward's, out is
+// bf16. Grid (ceil(HW / 64), Cp / (128 kMT), N), 256 threads,
+// smem_bytes(kMT) of dynamic shared memory.
+template <int kMT, bool kDx>
+__global__ void __launch_bounds__(kThreads, 1)
+psa_wgmma_kernel(const __nv_bfloat16* __restrict__ op, const __nv_bfloat16* __restrict__ a,
+                 const float* __restrict__ m_in, const float* __restrict__ l_in,
+                 void* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int C, int HW, int Cp, int HWp, float inv_norm) {
+  constexpr int kSA = stage_a(kMT);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sa = smem_addr(smem);  // A operand stages, then B operand stages
+  const uint32_t sb = sa + 2 * kSA;
+  Online& on = *reinterpret_cast<Online*>(smem + 2 * kSA + 2 * kStageB);
+
+  const int t0 = blockIdx.x * kTile;
+  const int c0 = blockIdx.y * 128 * kMT;
+  const long long n = blockIdx.z;
+  const __nv_bfloat16* an = a + n * HW * HW;
+  const unsigned short* araw = reinterpret_cast<const unsigned short*>(an);
+  const __nv_bfloat16* opn = op + (n * Cp + c0) * (long long)HWp;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+
+  // Each thread's part of the B operand (see the design note). Forward:
+  // column jj, source rows 16 ig .. 16 ig + 15 of the stage, with the
+  // column's running max and its share of the running sum. dx: query
+  // columns 2 jp and 2 jp + 1 of the stage, source rows ir + 8 r.
+  const int jj = tid % kTile, ig = tid / kTile;
+  const int jp = tid % 32, ir = tid / 32;
+  const bool jin = t0 + jj < HW;
+  float m_run = -INFINITY, l_run = 0.f;
+  unsigned short raw[16];
+  float ml[4];  // dx: m and l of the thread's two columns
+
+  auto load_operand = [&](int buf, int k0) {
+#pragma unroll
+    for (int u = 0; u < 4 * kMT; ++u) {
+      const int id = tid + kThreads * u;
+      const int r = id / 8, ch = id % 8;
+      cp_async16(sa + buf * kSA + swz(r, ch), opn + (long long)r * HWp + k0 + ch * 8);
+    }
+    cp_async_commit();
+  };
+  auto fetch = [&](int k0) {
+    if (!kDx) {
+      const int j = t0 + jj;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int i = k0 + 16 * ig + r;
+        raw[r] = (jin && i < HW) ? __ldg(araw + (long long)i * HW + j) : kNegInf;
+      }
+    } else {
+      const int j = k0 + 2 * jp;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = t0 + ir + 8 * r;
+        const unsigned short* row = araw + (long long)i * HW;
+        raw[2 * r] = (i < HW && j < HW) ? __ldg(row + j) : kNegInf;
+        raw[2 * r + 1] = (i < HW && j + 1 < HW) ? __ldg(row + j + 1) : kNegInf;
+      }
+      ml[0] = j < HW ? __ldg(m_in + n * HW + j) : 0.f;
+      ml[1] = j + 1 < HW ? __ldg(m_in + n * HW + j + 1) : 0.f;
+      ml[2] = j < HW ? __ldg(l_in + n * HW + j) : 1.f;
+      ml[3] = j + 1 < HW ? __ldg(l_in + n * HW + j + 1) : 1.f;
+    }
+  };
+  // Stage s's B operand into buffer s & 1. The forward's p is exp(a - m)
+  // for the running column max m after this stage; alpha = exp(m_old - m)
+  // rescales what the accumulators hold before stage s is added, and the
+  // column sum divides at the end (an online softmax, so that A is read
+  // once; the values rounded to bf16 are still at most 1).
+  auto produce = [&](int s) {
+    unsigned char* b = smem + 2 * kSA + (s & 1) * kStageB;
+    if (!kDx) {
+      float v[16];
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        v[r] = bf16_bits(raw[r]);  // -inf past HW
+        tmax = fmaxf(tmax, v[r]);
+      }
+      on.red[ig][jj] = tmax;
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < kThreads / kTile; ++g) tmax = fmaxf(tmax, on.red[g][jj]);
+      // Every stage has a source row < HW, so m is finite from stage 0 on
+      // in a column < HW; columns past HW keep m = 0, alpha = 1, p = 0.
+      const float m_new = jin ? fmaxf(m_run, tmax) : 0.f;
+      const float alpha = jin ? expf(m_run - m_new) : 1.f;  // 0 on stage 0
+      m_run = m_new;
+      float sum = 0.f;
+      uint32_t w[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float e0 = expf(v[2 * q] - m_new), e1 = expf(v[2 * q + 1] - m_new);
+        sum += e0 + e1;
+        w[q] = pack_bf16x2(e0, e1);
+      }
+      l_run = l_run * alpha + sum;
+      if (ig == 0) on.alpha[s & 1][jj] = alpha;
+      *reinterpret_cast<uint4*>(b + swz(jj, 2 * ig)) = make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(b + swz(jj, 2 * ig + 1)) = make_uint4(w[4], w[5], w[6], w[7]);
+    } else {
+      const float r0 = 1.f / ml[2], r1 = 1.f / ml[3];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = ir + 8 * r;
+        *reinterpret_cast<uint32_t*>(b + swz(row, jp / 4) + (jp % 4) * 4) =
+            pack_bf16x2(expf(bf16_bits(raw[2 * r]) - ml[0]) * r0,
+                        expf(bf16_bits(raw[2 * r + 1]) - ml[1]) * r1);
+      }
+    }
+  };
+
+  float acc[kMT][32];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[mt][e] = 0.f;
+  }
+
+  // A's loads for a stage are issued right after the previous stage's p
+  // is formed, so they have a whole stage to arrive.
+  const int stages = HWp / kTile;
+  load_operand(0, 0);
+  fetch(0);
+  produce(0);
+  if (stages > 1) fetch(kTile);
+  for (int s = 0; s < stages; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < stages;
+    if (more) {
+      load_operand(cur ^ 1, (s + 1) * kTile);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    if (!kDx) {  // rescale the thread's 16 columns by this stage's alpha
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float2 f = *reinterpret_cast<const float2*>(&on.alpha[cur][8 * q + 2 * (lane % 4)]);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          acc[mt][4 * q] *= f.x;
+          acc[mt][4 * q + 1] *= f.y;
+          acc[mt][4 * q + 2] *= f.x;
+          acc[mt][4 * q + 3] *= f.y;
+        }
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kTile / 16; ++k) {
+      const uint64_t db = desc_sw128(sb + cur * kStageB + k * 32);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const uint64_t da = desc_sw128(sa + cur * kSA + (wg * kMT + mt) * 64 * kRow + k * 32);
+        wgmma_m64n64k16(acc[mt], da, db);
+      }
+    }
+    wgmma_commit();
+    if (more) produce(s + 1);
+    if (s + 2 < stages) fetch((s + 2) * kTile);
+    wgmma_wait_all();
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) fence_regs(acc[mt]);
+    __syncthreads();
+  }
+
+  if (!kDx) {  // the column sums; out = acc / (l norm)
+    on.red[ig][jj] = l_run;
+    __syncthreads();
+    if (tid < kTile) {
+      float l = 0.f;
+#pragma unroll
+      for (int g = 0; g < kThreads / kTile; ++g) l += on.red[g][tid];
+      on.scale[tid] = jin ? inv_norm / l : 0.f;
+      if (m_out != nullptr && blockIdx.y == 0 && jin) {
+        m_out[n * HW + t0 + tid] = m_run;
+        l_out[n * HW + t0 + tid] = l;
+      }
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: acc times the column factor -> shared [128 kMT rows]
+  // [kOutStride] -> out rows.
+  float* so = reinterpret_cast<float*>(smem);
+  {
+    const int warp = (tid % 128) / 32;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = 8 * q + 2 * (lane % 4);
+      const float2 f = kDx ? make_float2(inv_norm, inv_norm)
+                           : *reinterpret_cast<const float2*>(&on.scale[col]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = (wg * kMT + mt) * 64 + warp * 16 + lane / 4 + 8 * h;
+          *reinterpret_cast<float2*>(so + row * kOutStride + col) =
+              make_float2(acc[mt][4 * q + 2 * h] * f.x, acc[mt][4 * q + 2 * h + 1] * f.y);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int row = tid / 32; row < 128 * kMT && c0 + row < C; row += kThreads / 32) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = lane + 32 * h;
+      if (t0 + col >= HW) continue;
+      const long long o = (n * C + c0 + row) * (long long)HW + t0 + col;
+      const float v = so[row * kOutStride + col];
+      if (kDx) {
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
+      } else {
+        static_cast<float*>(out)[o] = v;
+      }
+    }
+  }
+}
+
+// Elements of the packed operand for (n, c, hw): N x Cp x HWp.
+inline long long pack_elems(int n, int c, int hw) {
+  const int rows = 128 * m_tiles(c);
+  return (long long)n * ((c + rows - 1) / rows * rows) * ((hw + kTile - 1) / kTile * kTile);
+}
+
+template <int kMT, bool kDx, typename T>
+int launch(const T* src, const __nv_bfloat16* a, const float* m_in, const float* l_in,
+           void* out, float* m_out, float* l_out, __nv_bfloat16* pack, int n, int c, int hw,
+           float inv_norm, cudaStream_t s) {
+  const int rows = 128 * kMT;
+  const int cp = (c + rows - 1) / rows * rows;
+  const int hwp = (hw + kTile - 1) / kTile * kTile;
+  const long long total8 = (long long)n * cp * hwp / 8;
+  psa_pack_bf16_kernel<T><<<(unsigned)((total8 + 255) / 256), 256, 0, s>>>(
+      src, pack, c, hw, cp, hwp, total8);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int bytes = smem_bytes(kMT);
+  err = cudaFuncSetAttribute(psa_wgmma_kernel<kMT, kDx>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((hw + kTile - 1) / kTile, cp / rows, n);
+  psa_wgmma_kernel<kMT, kDx><<<grid, kThreads, bytes, s>>>(
+      pack, a, m_in, l_in, out, m_out, l_out, c, hw, cp, hwp, inv_norm);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDx, typename T>
+int dispatch(const T* src, const void* a, const float* m_in, const float* l_in, void* out,
+             float* m_out, float* l_out, void* pack, int n, int c, int hw, float inv_norm,
+             void* stream) {
+  if (n == 0 || c == 0 || hw == 0) return 0;
+  const auto* ab = (const __nv_bfloat16*)a;
+  auto* pk = (__nv_bfloat16*)pack;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (m_tiles(c)) {
+    case 1:
+      return launch<1, kDx>(src, ab, m_in, l_in, out, m_out, l_out, pk, n, c, hw, inv_norm, s);
+    case 2:
+      return launch<2, kDx>(src, ab, m_in, l_in, out, m_out, l_out, pk, n, c, hw, inv_norm, s);
+    default:
+      return launch<4, kDx>(src, ab, m_in, l_in, out, m_out, l_out, pk, n, c, hw, inv_norm, s);
+  }
+}
+
+}  // namespace tc
+
 template <bool kFlash>
 int launch_fwd(const void* x, const void* a, void* out, void* m, void* l, int n,
                int c, int hw, float inv_norm, int is_bf16, void* stream) {
@@ -615,4 +1092,22 @@ extern "C" int semseg_psa_flash_bwd(const void* x, const void* a, const void* g,
                                            inv_norm, s);
   }
   return launch_flash_bwd<float>(x, a, g, m, l, delta, da, dx, n, c, hw, inv_norm, s);
+}
+
+extern "C" long long semseg_psa_wgmma_pack_elems(int n, int c, int hw) {
+  return tc::pack_elems(n, c, hw);
+}
+
+extern "C" int semseg_psa_softmax_bmm_wgmma(const void* x, const void* a, void* out, void* m,
+                                            void* l, void* xpack, int n, int c, int hw,
+                                            float inv_norm, void* stream) {
+  return tc::dispatch<false>((const __nv_bfloat16*)x, a, nullptr, nullptr, out, (float*)m,
+                             (float*)l, xpack, n, c, hw, inv_norm, stream);
+}
+
+extern "C" int semseg_psa_bwd_dx_wgmma(const void* a, const void* g, const void* m,
+                                       const void* l, void* dx, void* gpack, int n, int c,
+                                       int hw, float inv_norm, void* stream) {
+  return tc::dispatch<true>((const float*)g, a, (const float*)m, (const float*)l, dx,
+                            nullptr, nullptr, gpack, n, c, hw, inv_norm, stream);
 }

@@ -29,6 +29,7 @@ import torch
 
 from semseg_torch.ops.resize import resize_bilinear_half_pixel_cf
 from semseg_torch.ops.stitch import supported, upsample_softmax_flip
+from semseg_torch.utils.misc import resolve_device
 
 
 def _grid_coords(new_h, new_w, crop_h, crop_w, stride_rate):
@@ -93,7 +94,9 @@ class SlidingWindowEvaluator:
         """``model``: an ``nn.Module`` on ``device`` whose ``forward(x,
         zoom=True)`` maps normalized ``[B, 3, crop_h, crop_w]`` windows to
         float32 logits (``zoom=False``: at feature resolution) and which
-        carries ``dtype`` and ``zoom_factor``. ``fused_stitch=None`` picks
+        carries ``dtype`` and ``zoom_factor``. ``device=None`` is the CUDA
+        device (raising without one); the CPU only as ``device="cpu"``.
+        ``fused_stitch=None`` picks
         the fused kernel for bf16 models with flip TTA and a zoomed head
         on CUDA; ``True`` forces it (a CPU tensor then runs the kernel's
         plain version)."""
@@ -115,7 +118,7 @@ class SlidingWindowEvaluator:
         self.flip = flip
         self.stride_rate = stride_rate
         self.window_batch = max(2, window_batch)
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.dtype = getattr(model, "dtype", torch.float32)
         self._mean = torch.tensor(mean, dtype=torch.float32).view(3, 1, 1).to(self.device)
         self._std = (None if std is None else

@@ -2,7 +2,7 @@
 
 Port of ``semseg_tpu/models/build.py`` (``arch: psp`` and ``arch: psa``).
 ``cfg`` is any object with the config keys as attributes
-(``semseg_tpu.config.Config`` or a plain namespace); optional keys are read
+(``semseg_torch.config.Config`` or a plain namespace); optional keys are read
 with ``getattr``.
 """
 
@@ -13,6 +13,7 @@ import torch
 from semseg_torch.models.layers import set_precision
 from semseg_torch.models.psanet import PSANet
 from semseg_torch.models.pspnet import PSPNet
+from semseg_torch.utils.misc import resolve_device
 
 
 def derive_psa_mask_dims(cfg):
@@ -65,8 +66,9 @@ def compute_dtype(cfg) -> torch.dtype:
 
 def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
                 seed: int = 0, train: bool = False):
-    """The model described by ``cfg`` on ``device``, with seeded random
-    weights (load a checkpoint over them to serve real ones), in eval mode,
+    """The model described by ``cfg`` on ``device`` (``None``: the CUDA
+    device, raising without one; the CPU only as ``device="cpu"``), with
+    seeded random weights (load a checkpoint over them to serve real ones), in eval mode,
     or in train mode with ``train``. float32 models run with TF32 off, or
     on for ``matmul_precision: high`` (``layers.set_precision``).
 
@@ -74,6 +76,7 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
     its moments over the whole batch: what ``sync_bn`` asks for, and what
     ``sync_bn: False`` gives on one replica too."""
     validate_arch(cfg)
+    device = resolve_device(device)
     set_precision(dtype, getattr(cfg, "matmul_precision", None))
     if cfg.arch == "psp":
         model = PSPNet(layers=cfg.layers, classes=cfg.classes,
@@ -93,4 +96,4 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
             # None = auto (the CUDA kernels on CUDA); True/False force.
             fused_attention=getattr(cfg, "fused_attention", None), dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(seed))
-    return model.to(device or "cpu").train(train)
+    return model.to(device).train(train)

@@ -102,8 +102,11 @@ class PSA(nn.Module):
         x_flat = xr.reshape(n, c, hw)
         if self.psa_softmax and use_fused_attention(self.fused_attention, x.device):
             # A stays in the compute dtype: its values come from the
-            # attention conv through data movement only; the kernel's math
-            # is float32 either way.
+            # attention conv through data movement only. The operand dtype
+            # picks the precision, as the JAX kernel's _precision_for does:
+            # f32 operands run f32 math throughout; bf16 operands run the
+            # product on the tensor cores with p rounded to bf16 and f32
+            # sums (one bf16 MXU pass on the TPU).
             agg = psa_softmax_bmm_auto(x_flat.contiguous(), a.contiguous(),
                                        self.normalization_factor)
         else:

@@ -8,22 +8,31 @@ the softmax(dim=1) + bmm hot spot of the PSA module (reference
 ``model/psanet.py:68-70``), without writing the softmaxed ``(H*W)^2``
 attention to device memory. ``x`` is ``[N, C, HW]`` and ``A`` is
 ``[N, HW, HW]``, both bfloat16 or both float32; the output is float32
-``[N, C, HW]`` and all in-kernel math is float32 (the JAX contract:
-``_precision_for`` gives HIGHEST for f32, and bf16 operands are held to the
-f32 reference on the same bf16 values).
+``[N, C, HW]``. The operand dtype picks the precision, as the JAX kernels'
+``_precision_for`` does: float32 operands run all math in float32 (HIGHEST);
+bfloat16 operands may run the product at DEFAULT precision, one bf16 pass
+with ``p`` (and ``g`` in the backward) rounded to bfloat16 and float32 sums.
 
-Five kernels in ``csrc/psa.cu``. Forward, picked by
+Seven kernels in ``csrc/psa.cu``. Forward, picked by
 :func:`select_psa_kernel`:
-- **resident** (:func:`psa_softmax_bmm`): an exact column softmax per
-  query tile (a first pass over all source rows for the column max ``m``
-  and sum ``l``, a second that contracts ``p`` against ``x``);
+- **resident** (:func:`psa_softmax_bmm`): all source rows per query
+  tile. float32 operands run the f32 SIMT kernel (a first pass over the
+  source rows for the column max ``m`` and sum ``l``, a second that
+  contracts ``p`` against ``x``); bfloat16 operands the tensor-core kernel
+  (:func:`psa_softmax_bmm_wgmma`: one pass, an online softmax, wgmma with
+  ``p`` in bf16);
 - **flash** (:func:`psa_softmax_bmm_flash`): one pass over the source
-  rows with an online softmax (running max ``m``, running sum ``l``).
+  rows with an online softmax (running max ``m``, running sum ``l``), f32
+  math for both dtypes.
 Backward, from the forward's ``m``, ``l`` and output (p is recomputed as
 ``exp(A - m) / l``; the softmax VJP's column term comes from the flash
 identity ``sum_i p * dP = sum_c g * out``):
-- resident: :func:`psa_softmax_bmm_bwd_da` and :func:`psa_softmax_bmm_bwd_dx`;
+- resident: :func:`psa_softmax_bmm_bwd_da` and :func:`psa_softmax_bmm_bwd_dx`
+  (float32 operands: the SIMT dx kernel; bfloat16: the tensor-core one,
+  :func:`psa_softmax_bmm_bwd_dx_wgmma`);
 - flash: :func:`psa_softmax_bmm_flash_bwd`, both gradients in one launch.
+The dtype rule is a rule, not a fallback: no bf16 call reaches the SIMT
+resident forward or dx kernel through these entry points.
 
 :func:`psa_softmax_bmm` and :func:`psa_softmax_bmm_flash` are
 differentiable: while grad is enabled and an input requires it, they run
@@ -50,6 +59,17 @@ def psa_softmax_bmm_reference(x: torch.Tensor, a: torch.Tensor,
     """Plain PyTorch version (JAX ``psa_pallas.py:242``): float32 softmax
     over axis 1, float32 bmm, divided by ``norm``."""
     p = torch.softmax(a.float(), dim=1)
+    return torch.bmm(x.float(), p) / norm
+
+
+def psa_softmax_bmm_bf16_reference(x: torch.Tensor, a: torch.Tensor,
+                                   norm: float = 1.0) -> torch.Tensor:
+    """Plain version of the tensor-core forward: the float32 softmax over
+    axis 1 rounded to bfloat16 (the TPU's DEFAULT-precision operand), then
+    a float32 bmm with ``x``, divided by ``norm``. It rounds each term of p
+    once, as the kernel does (the kernel rounds p times a per-column
+    factor, so the two agree to the order of the sums and that rounding)."""
+    p = torch.softmax(a.float(), dim=1).to(torch.bfloat16).float()
     return torch.bmm(x.float(), p) / norm
 
 
@@ -84,6 +104,15 @@ def psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l, norm: float = 1.0):
     """Plain version of the dx kernels: ``dx = g p^T / norm`` in float32,
     returned in ``x``'s dtype."""
     return (torch.bmm(g.float(), _probs(a, m, l).transpose(1, 2)) / norm).to(x.dtype)
+
+
+def psa_softmax_bmm_bwd_dx_bf16_reference(x, a, g, m, l, norm: float = 1.0):
+    """Plain version of the tensor-core dx: ``p`` and ``g`` rounded to
+    bfloat16, then ``g p^T / norm`` in float32, returned in ``x``'s
+    dtype."""
+    p = _probs(a, m, l).to(torch.bfloat16).float()
+    gb = g.to(torch.bfloat16).float()
+    return (torch.bmm(gb, p.transpose(1, 2)) / norm).to(x.dtype)
 
 
 def psa_softmax_bmm_bwd_reference(x, a, g, m, l, out, norm: float = 1.0):
@@ -123,6 +152,8 @@ def _lib():
         "semseg_psa_bwd_da": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
         "semseg_psa_bwd_dx": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
         "semseg_psa_flash_bwd": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+        "semseg_psa_softmax_bmm_wgmma": [_P] * 6 + [_I] * 3 + [_F, _P],
+        "semseg_psa_bwd_dx_wgmma": [_P] * 6 + [_I] * 3 + [_F, _P],
     }
     fns = {}
     for name, argtypes in signatures.items():
@@ -130,6 +161,9 @@ def _lib():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
+    fn = lib.semseg_psa_wgmma_pack_elems
+    fn.argtypes, fn.restype = [_I] * 3, ctypes.c_longlong
+    fns["semseg_psa_wgmma_pack_elems"] = fn
     return fns
 
 
@@ -179,13 +213,36 @@ def _needs_grad(x, a) -> bool:
     return torch.is_grad_enabled() and (x.requires_grad or a.requires_grad)
 
 
+def _check_bf16(x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core kernels take bfloat16 operands, got {x.dtype} "
+                         "(float32 operands run the SIMT kernels)")
+
+
+def _wgmma_pack(x: torch.Tensor) -> torch.Tensor:
+    """Scratch for the tensor-core kernels' bf16 copy of x or g, padded to
+    whole tiles (``tc::pack_elems`` in ``csrc/psa.cu``)."""
+    n, c, hw = x.shape
+    elems = _lib()["semseg_psa_wgmma_pack_elems"](n, c, hw)
+    return torch.empty(elems, dtype=torch.bfloat16, device=x.device)
+
+
 def _forward(x, a, norm, flash: bool, stats: bool):
     """One forward launch (or its plain version on the CPU): ``out`` and,
-    with ``stats``, ``m`` and ``l``."""
+    with ``stats``, ``m`` and ``l``. The resident forward on bfloat16 CUDA
+    operands is the tensor-core kernel; every other case the SIMT one."""
     if x.device.type == "cpu" and a.device.type == "cpu":
         out = psa_softmax_bmm_reference(x, a, norm)
         return (out, *psa_softmax_stats(a)) if stats else out
     _check_cuda(x, a)
+    if not flash and x.dtype == torch.bfloat16:
+        return _forward_wgmma(x, a, norm, stats)
+    return _forward_simt(x, a, norm, flash, stats)
+
+
+def _forward_simt(x, a, norm, flash: bool, stats: bool):
+    """The SIMT forward kernels (f32 math) on checked CUDA operands of
+    either dtype; counts on the entry point's wrapper."""
     n, c, hw = x.shape
     out = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
     m = l = None
@@ -197,6 +254,21 @@ def _forward(x, a, norm, flash: bool, stats: bool):
             n, c, hw, 1.0 / norm, int(x.dtype == torch.bfloat16))
     wrapper = psa_softmax_bmm_flash if flash else psa_softmax_bmm
     wrapper.launches += 1
+    return (out, m, l) if stats else out
+
+
+def _forward_wgmma(x, a, norm, stats: bool):
+    """The tensor-core resident forward on checked bfloat16 CUDA operands."""
+    n, c, hw = x.shape
+    out = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
+    m = l = None
+    if stats:
+        m = torch.empty((n, hw), dtype=torch.float32, device=x.device)
+        l = torch.empty((n, hw), dtype=torch.float32, device=x.device)
+    pack = _wgmma_pack(x)
+    _launch("semseg_psa_softmax_bmm_wgmma", x, _ptr(x), _ptr(a), _ptr(out), _ptr(m), _ptr(l),
+            _ptr(pack), n, c, hw, 1.0 / norm)
+    psa_softmax_bmm_wgmma.launches += 1
     return (out, m, l) if stats else out
 
 
@@ -233,8 +305,9 @@ def psa_softmax_bmm(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
     ``return_stats`` (forward only; the statistics carry no graph). While
     grad is enabled and an input requires it, the call is differentiable
     through the resident backward kernels. CPU tensors run the plain
-    version; CUDA tensors run the kernel and add one to
-    ``psa_softmax_bmm.launches``."""
+    version; float32 CUDA tensors run the SIMT kernel and add one to
+    ``psa_softmax_bmm.launches``; bfloat16 CUDA tensors run the tensor-core
+    kernel and add one to ``psa_softmax_bmm_wgmma.launches``."""
     if _needs_grad(x, a):
         if return_stats:
             raise ValueError("return_stats is forward-only: call under torch.no_grad()")
@@ -243,6 +316,32 @@ def psa_softmax_bmm(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
 
 
 psa_softmax_bmm.launches = 0
+
+
+def psa_softmax_bmm_wgmma(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
+                          return_stats: bool = False):
+    """The resident forward on the tensor cores, for bfloat16 operands:
+    ``(1/norm) * x @ p`` with ``p = softmax(a, dim=1)``, each term of p
+    rounded once to bfloat16 and the sums in float32
+    (``psa_pallas.py::_fwd_kernel`` at DEFAULT precision). The kernel's
+    softmax is online: it rounds ``exp(a - m)`` for the running column max
+    ``m`` and divides by the column sum at the end, which is ``p`` up to a
+    per-column float32 factor.
+    Returns float32 ``[N, C, HW]``, or ``(out, m, l)`` with
+    ``return_stats``. Forward only: :func:`psa_softmax_bmm` is the
+    differentiable entry point and calls this kernel for bf16 operands. CPU
+    tensors run the plain version (:func:`psa_softmax_bmm_bf16_reference`);
+    CUDA tensors must be bfloat16, run the kernel and add one to
+    ``psa_softmax_bmm_wgmma.launches``."""
+    if x.device.type == "cpu" and a.device.type == "cpu":
+        out = psa_softmax_bmm_bf16_reference(x, a, norm)
+        return (out, *psa_softmax_stats(a)) if return_stats else out
+    _check_cuda(x, a)
+    _check_bf16(x)
+    return _forward_wgmma(x, a, norm, return_stats)
+
+
+psa_softmax_bmm_wgmma.launches = 0
 
 
 def psa_softmax_bmm_flash(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
@@ -289,12 +388,22 @@ psa_softmax_bmm_bwd_da.launches = 0
 def psa_softmax_bmm_bwd_dx(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:
     """Resident backward, ``dx = g p^T / norm`` in ``x``'s dtype
     (``psa_pallas.py::_bwd_dx_kernel``; ``x`` gives the shape and dtype
-    only). CPU tensors run the plain version; CUDA tensors run the kernel
-    and add one to ``psa_softmax_bmm_bwd_dx.launches``."""
+    only). CPU tensors run the plain version; float32 CUDA tensors run the
+    SIMT kernel and add one to ``psa_softmax_bmm_bwd_dx.launches``;
+    bfloat16 ones the tensor-core kernel
+    (:func:`psa_softmax_bmm_bwd_dx_wgmma`)."""
     if x.device.type == "cpu":
         return psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l, norm)
     _check_cuda(x, a)
     _check_cuda_f32(x, g=g, m=m, l=l)
+    if x.dtype == torch.bfloat16:
+        return _bwd_dx_wgmma(x, a, g, m, l, norm)
+    return _bwd_dx_simt(x, a, g, m, l, norm)
+
+
+def _bwd_dx_simt(x, a, g, m, l, norm):
+    """The SIMT dx kernel (f32 math) on checked CUDA operands of either
+    dtype."""
     n, c, hw = x.shape
     dx = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
     _launch("semseg_psa_bwd_dx", x, _ptr(a), _ptr(g), _ptr(m), _ptr(l), _ptr(dx),
@@ -304,6 +413,36 @@ def psa_softmax_bmm_bwd_dx(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:
 
 
 psa_softmax_bmm_bwd_dx.launches = 0
+
+
+def _bwd_dx_wgmma(x, a, g, m, l, norm):
+    """The tensor-core dx kernel on checked bfloat16 CUDA operands."""
+    n, c, hw = x.shape
+    dx = torch.empty((n, c, hw), dtype=torch.bfloat16, device=x.device)
+    pack = _wgmma_pack(x)
+    _launch("semseg_psa_bwd_dx_wgmma", x, _ptr(a), _ptr(g), _ptr(m), _ptr(l), _ptr(dx),
+            _ptr(pack), n, c, hw, 1.0 / norm)
+    psa_softmax_bmm_bwd_dx_wgmma.launches += 1
+    return dx
+
+
+def psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:
+    """Resident dx on the tensor cores, for bfloat16 operands: ``g`` and
+    ``p = exp(a - m) / l`` rounded to bfloat16, ``g p^T / norm`` summed in
+    float32 (``psa_pallas.py::_bwd_dx_kernel`` at DEFAULT precision),
+    returned in bfloat16. CPU tensors run the plain version
+    (:func:`psa_softmax_bmm_bwd_dx_bf16_reference`); CUDA tensors must be
+    bfloat16 (``g``, ``m``, ``l`` float32), run the kernel and add one to
+    ``psa_softmax_bmm_bwd_dx_wgmma.launches``."""
+    if x.device.type == "cpu":
+        return psa_softmax_bmm_bwd_dx_bf16_reference(x, a, g, m, l, norm)
+    _check_cuda(x, a)
+    _check_cuda_f32(x, g=g, m=m, l=l)
+    _check_bf16(x)
+    return _bwd_dx_wgmma(x, a, g, m, l, norm)
+
+
+psa_softmax_bmm_bwd_dx_wgmma.launches = 0
 
 
 def psa_softmax_bmm_flash_bwd(x, a, g, m, l, out, norm: float = 1.0):

@@ -40,8 +40,10 @@ IMAGENET_STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
 def build_evaluator(cfg, logger, dtype: torch.dtype = torch.float32,
                     device=None, seed: int = 0):
     """Model + weights + sliding-window pipeline, as ``tool/serve.py``.
-    ``cfg`` is a ``semseg_tpu.config.Config`` or any namespace with the
-    same attributes (optional keys are read with ``getattr``).
+    ``cfg`` is a ``semseg_torch.config.Config`` or any namespace with the
+    same attributes (optional keys are read with ``getattr``). ``device=None``
+    is the CUDA device and raises without one; the CPU only as
+    ``device="cpu"``.
 
     Weights come from ``cfg.model_path`` (a reference or port ``.pth``),
     else from ``seed`` when ``allow_random_weights`` is set; anything else
@@ -49,8 +51,9 @@ def build_evaluator(cfg, logger, dtype: torch.dtype = torch.float32,
     from semseg_torch.engine.evaluator import SlidingWindowEvaluator
     from semseg_torch.models.build import build_model
     from semseg_torch.models.convert import load_pth
+    from semseg_torch.utils.misc import resolve_device
 
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     model = build_model(cfg, dtype=dtype, device=device, seed=seed)
     path = getattr(cfg, "model_path", None) or ""
     if os.path.isfile(path) and path.endswith(".pth"):
@@ -75,7 +78,8 @@ def build_evaluator(cfg, logger, dtype: torch.dtype = torch.float32,
 
 def make_server(cfg, port=None, device=None):
     """Build (and return, unstarted) the HTTP server; ``.serve_forever()``
-    to run. The returned object has ``.server_address`` for tests."""
+    to run. The returned object has ``.server_address`` for tests.
+    ``device=None`` serves on the CUDA device and raises without one."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from semseg_torch.utils.misc import colorize, get_logger
@@ -165,7 +169,7 @@ def main(argv=None):
             "semseg_torch.serve needs a CUDA device and "
             "torch.cuda.is_available() is false; call "
             "make_server(cfg, device='cpu') to serve on the CPU")
-    from semseg_tpu.config import parse_config_args  # imports yaml
+    from semseg_torch.config import parse_config_args  # imports yaml
 
     cfg = parse_config_args(
         argv, default_config="config/cityscapes/cityscapes_pspnet50.yaml"

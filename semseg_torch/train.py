@@ -12,10 +12,11 @@ aux loss, ``epochs * len(loader)`` iterations, the reference's log lines
 epoch) and ``train_epoch_{k}.pth`` every ``save_freq`` epochs (reference
 state_dict names, with the optimizer state).
 
-The host side is shared with the JAX package, not ported: configs parse
-with ``semseg_tpu.config`` and data comes from ``semseg_tpu.data``
-(``SemData``, the train transforms, ``DataLoader``). Both are numpy, cv2
-and yaml only and import no jax.
+The host side is the port's own: configs parse with
+``semseg_torch.config`` and data comes from ``semseg_torch.data``
+(``SemData``, the train transforms, ``DataLoader``), copies of the JAX
+package's modules of the same names (numpy, cv2 and yaml; the port
+imports nothing of ``semseg_tpu``).
 
 Not ported yet (they raise): ``resume``, ``weight``, loading a pretrained
 backbone file, ``evaluate: True`` and the native loader (ROADMAP item 9).
@@ -59,7 +60,7 @@ def build_train_loader(cfg):
     shared host modules. Images are NHWC float32, normalised on the host,
     or raw pixels for ``image_wire_dtype: uint8`` (normalised on the
     device). Returns ``(loader, normalize)``."""
-    from semseg_tpu.data import DataLoader, SemData, Uint8Wire, transform
+    from semseg_torch.data import DataLoader, SemData, Uint8Wire, transform
 
     wire = _get(cfg, "image_wire_dtype", "float32")
     if wire not in WIRE_DTYPES:
@@ -211,9 +212,9 @@ def _train_epoch(cfg, logger, trainer, batches, epoch, steps_per_epoch, max_iter
 
 
 def parse_args(argv=None):
-    """The config of ``--config PATH [KEY VALUE ...]``, by the shared
-    ``semseg_tpu.config`` parser (yaml, no jax)."""
-    from semseg_tpu.config import parse_config_args
+    """The config of ``--config PATH [KEY VALUE ...]``, by
+    ``semseg_torch.config``'s parser (yaml)."""
+    from semseg_torch.config import parse_config_args
 
     return parse_config_args(argv, default_config="config/cityscapes/cityscapes_psanet50.yaml")
 

@@ -1,7 +1,5 @@
-"""Small helpers copied from ``semseg_tpu/utils/misc.py``.
-
-They are copies rather than imports because ``semseg_tpu.utils`` imports
-``jax`` through its package ``__init__`` (``utils/metrics.py``).
+"""Small helpers: copies from ``semseg_tpu/utils/misc.py`` (the port
+imports nothing of the JAX package), and the port's device default.
 """
 
 from __future__ import annotations
@@ -41,3 +39,20 @@ def get_logger(name: str = "main-logger"):
     handler.setFormatter(logging.Formatter(fmt))
     logger.addHandler(handler)
     return logger
+
+
+def resolve_device(device=None):
+    """``device`` as a ``torch.device``; ``None`` means ``cuda`` (the
+    current CUDA device). The entry points run on the card unless the caller
+    names another device: without CUDA, ``None`` raises, and the CPU is
+    used only when asked for (``device="cpu"``)."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no device given and torch.cuda.is_available() is false: the "
+            "port runs on a CUDA device by default; pass device='cpu' to run "
+            "on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())

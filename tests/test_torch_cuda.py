@@ -95,6 +95,31 @@ def test_fused_slice_on_cuda(cuda):
     assert (fused.argmax(-1) == other.argmax(-1)).mean() >= 0.995
 
 
+def _fwd_bars(x, a, norm):
+    """The tensor-core forward's bar, element by element:
+
+        |kernel - plain| <= 2^-8 (|x| @ p) / norm + 1e-6.
+
+    The kernel rounds p to bf16 (2^-9 relative, the TPU's DEFAULT-precision
+    pass), and the f32 sums run in another order; 2^-8 is that rounding
+    with a factor 2 for the order. ``|x| @ p`` comes from the plain
+    version."""
+    p = torch.softmax(a.float(), dim=1)
+    return 2.0 ** -8 * torch.bmm(x.float().abs(), p) / norm + 1e-6
+
+
+def _dx_bars(a, g, m, l, dx32, norm):
+    """The tensor-core dx's bar, element by element:
+
+        |kernel - plain| <= 2^-7 (|g| @ p^T) / norm + ulp_bf16(|plain|).
+
+    g and p are both rounded to bf16 (2^-9 each, a factor 2 for the order
+    of the sums), and the result is returned in bf16 (one ulp)."""
+    p = psa._probs(a, m, l)
+    ulp = 2.0 ** (torch.floor(torch.log2(dx32.abs().clamp_min(1e-30))) - 7)
+    return 2.0 ** -7 * torch.bmm(g.abs(), p.transpose(1, 2)) / norm + ulp
+
+
 @pytest.mark.parametrize("n,c,hw,dtype", [
     (1, 5, 1, torch.float32),        # a single position
     (2, 7, 37, torch.float32),       # ragged C and hw, several column tiles
@@ -104,26 +129,95 @@ def test_fused_slice_on_cuda(cuda):
     (1, 512, 7921, torch.bfloat16),  # shrink 1 (flash on the path)
 ])
 def test_psa_kernels_match_plain(cuda, n, c, hw, dtype):
-    """Both kernels, whatever the rule picks: max abs diff <= 1e-4 *
-    max|plain| + 1e-5 (f32 sums over up to hw terms in another order);
-    flash m exact and l within 1e-5 relative."""
+    """Both forward entry points, whatever the rule picks. The flash kernel
+    and the f32 resident (SIMT) kernel: max abs diff <= 1e-4 * max|plain| +
+    1e-5 (f32 sums over up to hw terms in another order). bf16 operands
+    send the resident forward to the tensor cores, held to ``_fwd_bars``.
+    m exact and l within 1e-5 relative."""
     g = torch.Generator(device=cuda).manual_seed(hw)
     x = torch.randn(n, c, hw, generator=g, device=cuda).to(dtype)
     a = (torch.randn(n, hw, hw, generator=g, device=cuda) * 3).to(dtype)
     want = psa.psa_softmax_bmm_reference(x, a, 1.3)
     m_ref, l_ref = psa.psa_softmax_stats(a)
     bar = 1e-4 * want.abs().max().item() + 1e-5
-    before = (psa.psa_softmax_bmm.launches, psa.psa_softmax_bmm_flash.launches)
+    resident = psa.psa_softmax_bmm_wgmma if dtype == torch.bfloat16 else psa.psa_softmax_bmm
+    counters = (psa.psa_softmax_bmm, psa.psa_softmax_bmm_wgmma, psa.psa_softmax_bmm_flash)
+    before = {f: f.launches for f in counters}
     res = psa.psa_softmax_bmm(x, a, 1.3)
     out, m, l = psa.psa_softmax_bmm_flash(x, a, 1.3, return_stats=True)
     torch.cuda.synchronize()
-    assert (psa.psa_softmax_bmm.launches, psa.psa_softmax_bmm_flash.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert {f: f.launches - before[f] for f in counters} == {
+        f: int(f in (resident, psa.psa_softmax_bmm_flash)) for f in counters}
     assert res.dtype == out.dtype == torch.float32 and res.shape == want.shape
-    assert (res - want).abs().max().item() <= bar
+    if dtype == torch.bfloat16:
+        assert ((res - want).abs() <= _fwd_bars(x, a, 1.3)).all()
+    else:
+        assert (res - want).abs().max().item() <= bar
     assert (out - want).abs().max().item() <= bar
     assert torch.equal(m, m_ref)
     assert ((l - l_ref).abs() / l_ref).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("n,c,hw", [
+    (1, 130, 97),     # two channel tiles of 128, ragged stages
+    (3, 16, 200),     # one M tile per warpgroup, four query tiles
+    (8, 512, 2025),   # Cityscapes PSANet, served (4 launches an image)
+    (16, 512, 2025),  # Cityscapes PSANet, trained at batch 16
+])
+def test_wgmma_kernels_match_plain(cuda, n, c, hw):
+    """The tensor-core forward and dx on bf16 operands against the plain
+    f32 versions: element by element within ``_fwd_bars`` and
+    ``_dx_bars``, and within the JAX package's bf16 license (rtol = atol =
+    1e-2, ``tests/test_psa_pallas.py``); m exact, l within 1e-5; two calls
+    bit-identical; one launch each; the SIMT kernels they replaced, launched
+    directly on the same bf16 operands, still within 1e-4 (forward) and one
+    bf16 ulp of max|plain| (dx)."""
+    g0 = torch.Generator(device=cuda).manual_seed(hw + 2)
+    x = torch.randn(n, c, hw, generator=g0, device=cuda).to(torch.bfloat16)
+    a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(torch.bfloat16)
+    g = torch.randn(n, c, hw, generator=g0, device=cuda)
+    with torch.no_grad():
+        before = (psa.psa_softmax_bmm_wgmma.launches, psa.psa_softmax_bmm_bwd_dx_wgmma.launches)
+        out, m, l = psa.psa_softmax_bmm_wgmma(x, a, 1.3, return_stats=True)
+        dx = psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m, l, 1.3)
+        torch.cuda.synchronize()
+        assert (psa.psa_softmax_bmm_wgmma.launches,
+                psa.psa_softmax_bmm_bwd_dx_wgmma.launches) == (before[0] + 1, before[1] + 1)
+        assert out.dtype == torch.float32 and dx.dtype == torch.bfloat16
+        want = psa.psa_softmax_bmm_reference(x, a, 1.3)
+        m_ref, l_ref = psa.psa_softmax_stats(a)
+        assert torch.equal(m, m_ref) and ((l - l_ref).abs() / l_ref).max().item() <= 1e-5
+        assert ((out - want).abs() <= _fwd_bars(x, a, 1.3)).all()
+        torch.testing.assert_close(out, want, rtol=1e-2, atol=1e-2)
+        dx32 = psa.psa_softmax_bmm_bwd_dx_reference(x.float(), a, g, m, l, 1.3)
+        assert ((dx.float() - dx32).abs() <= _dx_bars(a, g, m, l, dx32, 1.3)).all()
+        torch.testing.assert_close(dx.float(), dx32, rtol=1e-2, atol=1e-2)
+        assert torch.equal(out, psa.psa_softmax_bmm_wgmma(x, a, 1.3))
+        assert torch.equal(dx, psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m, l, 1.3))
+        simt = psa._forward_simt(x, a, 1.3, False, False)
+        assert (simt - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+        sdx = psa._bwd_dx_simt(x, a, g, m, l, 1.3)
+        mx = dx32.abs().max().item()
+        assert (sdx.float() - dx32.to(torch.bfloat16).float()).abs().max().item() <= (
+            2.0 ** (np.floor(np.log2(mx)) - 7))
+
+
+def test_wgmma_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 4, 9, device=cuda)
+    a = torch.zeros(1, 9, 9, device=cuda)
+    g = torch.zeros(1, 4, 9, device=cuda)
+    m, l = torch.zeros(1, 9, device=cuda), torch.ones(1, 9, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        psa.psa_softmax_bmm_wgmma(x, a)  # f32 operands run the SIMT kernels
+    with pytest.raises(ValueError, match="bfloat16"):
+        psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m, l)
+    xb, ab = x.to(torch.bfloat16), a.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        psa.psa_softmax_bmm_wgmma(xb, ab.transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        psa.psa_softmax_bmm_bwd_dx_wgmma(xb, ab, g.to(torch.bfloat16), m, l)
+    assert psa.psa_softmax_bmm_wgmma(xb, ab).shape == (1, 4, 9)
+    assert psa.psa_softmax_bmm_bwd_dx_wgmma(xb, ab, g, m, l).dtype == torch.bfloat16
 
 
 def test_psa_kernels_reject_what_they_do_not_take(cuda):
@@ -152,8 +246,9 @@ def test_psa_kernels_reject_what_they_do_not_take(cuda):
 
 def test_psanet_slice_on_cuda(cuda):
     """A small bf16 PSANet50 through build_evaluator: per chunk the stitch
-    kernel once and the resident PSA kernel twice (two directions); the
-    probabilities agree with the plain attention."""
+    kernel once and the tensor-core resident forward twice (two
+    directions), the SIMT one never; the probabilities agree with the
+    plain attention."""
     from types import SimpleNamespace
 
     from semseg_torch.serve import build_evaluator
@@ -168,13 +263,12 @@ def test_psanet_slice_on_cuda(cuda):
     ev = build_evaluator(cfg, get_logger(), dtype=torch.bfloat16, device=cuda)
     assert ev.fused_stitch
     image = (np.random.RandomState(0).rand(128, 256, 3) * 255).astype(np.uint8)
-    before = (stitch.upsample_softmax_flip.launches, psa.psa_softmax_bmm.launches,
-              psa.psa_softmax_bmm_flash.launches)
+    counters = (stitch.upsample_softmax_flip, psa.psa_softmax_bmm_wgmma, psa.psa_softmax_bmm,
+                psa.psa_softmax_bmm_flash)
+    before = [f.launches for f in counters]
     fused = ev.predict_probs(image)
     n_chunks = len(ev._geometry(128, 256).chunks)
-    assert (stitch.upsample_softmax_flip.launches, psa.psa_softmax_bmm.launches,
-            psa.psa_softmax_bmm_flash.launches) == (
-        before[0] + n_chunks, before[1] + 2 * n_chunks, before[2])
+    assert [f.launches - b for f, b in zip(counters, before)] == [n_chunks, 2 * n_chunks, 0, 0]
     ev.model.psa.fused_attention = False
     plain = ev.predict_probs(image)
     assert fused.shape == (128, 256, 19)
@@ -203,8 +297,9 @@ def _bwd_bars(dtype, dx_plain, da_plain):
 def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
     """da, dx and the flash backward against the plain backward (f32
     reference on the same operand values; bf16 grads against it rounded to
-    bf16), from the kernels' own forward statistics; grads in the primal
-    dtypes; two calls bit-identical; one launch each."""
+    bf16, but bf16 dx, which runs on the tensor cores, against the f32 one
+    within ``_dx_bars``), from the kernels' own forward statistics; grads
+    in the primal dtypes; two calls bit-identical; one launch each."""
     g0 = torch.Generator(device=cuda).manual_seed(hw + 1)
     x = torch.randn(n, c, hw, generator=g0, device=cuda).to(dtype)
     a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(dtype)
@@ -216,19 +311,23 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
         assert torch.equal(m, m_ref) and ((l - l_ref).abs() / l_ref).max().item() <= 1e-5
         dx32, da32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, m_ref, l_ref,
                                                        fout, 1.3)
-        before = (psa.psa_softmax_bmm_bwd_da.launches, psa.psa_softmax_bmm_bwd_dx.launches,
-                  psa.psa_softmax_bmm_flash_bwd.launches)
+        dx_counter = (psa.psa_softmax_bmm_bwd_dx_wgmma if dtype == torch.bfloat16
+                      else psa.psa_softmax_bmm_bwd_dx)
+        counters = (psa.psa_softmax_bmm_bwd_da, dx_counter, psa.psa_softmax_bmm_flash_bwd)
+        before = tuple(f.launches for f in counters)
         da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
         dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3)
         fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout, 1.3)
         torch.cuda.synchronize()
-        assert (psa.psa_softmax_bmm_bwd_da.launches, psa.psa_softmax_bmm_bwd_dx.launches,
-                psa.psa_softmax_bmm_flash_bwd.launches) == tuple(b + 1 for b in before)
+        assert tuple(f.launches for f in counters) == tuple(b + 1 for b in before)
         assert da.dtype == fda.dtype == dx.dtype == fdx.dtype == dtype
         want_dx, want_da = (dx32, da32) if dtype == torch.float32 else (
             dx32.to(dtype).float(), da32.to(dtype).float())
         bar_dx, bar_da = _bwd_bars(dtype, dx32, da32)
-        assert (dx.float() - want_dx).abs().max().item() <= bar_dx
+        if dtype == torch.bfloat16:
+            assert ((dx.float() - dx32).abs() <= _dx_bars(a, g, m, l, dx32, 1.3)).all()
+        else:
+            assert (dx.float() - want_dx).abs().max().item() <= bar_dx
         assert (fdx.float() - want_dx).abs().max().item() <= bar_dx
         assert (da.float() - want_da).abs().max().item() <= bar_da
         assert (fda.float() - want_da).abs().max().item() <= bar_da
@@ -282,10 +381,37 @@ def test_psa_backward_kernels_reject_what_they_do_not_take(cuda):
             call(x, a.cpu(), g, m, l)
 
 
+def test_entry_points_default_to_cuda(cuda):
+    """With no device, build_model, build_evaluator, make_server and
+    SlidingWindowEvaluator run on the current CUDA device."""
+    from types import SimpleNamespace
+
+    from semseg_torch.engine.evaluator import SlidingWindowEvaluator
+    from semseg_torch.models.build import build_model
+    from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD, build_evaluator, make_server
+    from semseg_torch.utils.misc import get_logger
+
+    cfg = SimpleNamespace(arch="psp", layers=50, classes=4, zoom_factor=8, train_h=25,
+                          train_w=25, test_h=25, test_w=25, base_size=40, scales=[1.0],
+                          model_path="", allow_random_weights=True, window_batch=4,
+                          eval_pipeline="device")
+    here = torch.device("cuda", torch.cuda.current_device())
+    model = build_model(cfg)
+    assert next(model.parameters()).device == here
+    ev = SlidingWindowEvaluator(model, classes=4, crop_h=25, crop_w=25, mean=IMAGENET_MEAN,
+                                std=IMAGENET_STD, base_size=40, scales=[1.0])
+    assert ev.device == here
+    assert ev.predict(np.zeros((30, 40, 3), np.uint8)).shape == (30, 40)
+    assert build_evaluator(cfg, get_logger()).device == here
+    server = make_server(cfg, port=0)
+    server.server_close()
+
+
 def test_psanet_train_step_on_cuda(cuda):
     """One bf16 PSANet50 train step at 97x97 crops through the Trainer:
-    per step the resident forward, da and dx twice each (two directions),
-    no flash and no stitch kernel; finite losses; every parameter moved."""
+    per step the tensor-core forward and dx and the da kernel twice each
+    (two directions), no SIMT forward or dx, no flash and no stitch kernel;
+    finite losses; every parameter moved."""
     from types import SimpleNamespace
 
     from semseg_torch.engine.optim import make_sgd
@@ -303,15 +429,17 @@ def test_psanet_train_step_on_cuda(cuda):
     rs = np.random.RandomState(0)
     images = torch.from_numpy(rs.randint(0, 256, (2, 97, 97, 3)).astype(np.uint8))
     labels = torch.from_numpy(rs.randint(0, 19, (2, 97, 97)).astype(np.uint8))
-    counters = {"fwd": psa.psa_softmax_bmm, "da": psa.psa_softmax_bmm_bwd_da,
-                "dx": psa.psa_softmax_bmm_bwd_dx, "flash": psa.psa_softmax_bmm_flash,
+    counters = {"fwd": psa.psa_softmax_bmm_wgmma, "da": psa.psa_softmax_bmm_bwd_da,
+                "dx": psa.psa_softmax_bmm_bwd_dx_wgmma, "simt_fwd": psa.psa_softmax_bmm,
+                "simt_dx": psa.psa_softmax_bmm_bwd_dx, "flash": psa.psa_softmax_bmm_flash,
                 "flash_bwd": psa.psa_softmax_bmm_flash_bwd,
                 "stitch": stitch.upsample_softmax_flip}
     start = {k: f.launches for k, f in counters.items()}
     metrics = tr.step(images, labels)
     torch.cuda.synchronize()
     got = {k: f.launches - start[k] for k, f in counters.items()}
-    assert got == {"fwd": 2, "da": 2, "dx": 2, "flash": 0, "flash_bwd": 0, "stitch": 0}
+    assert got == {"fwd": 2, "da": 2, "dx": 2, "simt_fwd": 0, "simt_dx": 0, "flash": 0,
+                   "flash_bwd": 0, "stitch": 0}
     assert np.isfinite(metrics["loss"].item()) and metrics["union"].sum().item() > 0
     for k, v in model.named_parameters():
         assert v.grad is not None and not torch.equal(v.detach(), before[k]), k

@@ -50,7 +50,7 @@ def test_pspnet50_slice_matches_jax(psp, scale):
     want_probs = np.asarray(jev.predict_probs(IMAGE))
     want_pred = np.asarray(jev.predict(IMAGE))
 
-    ev = teval.SlidingWindowEvaluator(model, **kw)
+    ev = teval.SlidingWindowEvaluator(model, device="cpu", **kw)
     assert not ev.fused_stitch
     probs = ev.predict_probs(IMAGE)
     pred = ev.predict(IMAGE)
@@ -115,7 +115,7 @@ def test_fused_path_matches_jax(scale):
                                        scales=[scale], mode="device", **STUB_KW)
     want = np.asarray(jev.predict_probs(STUB_IMAGE), np.float32)
 
-    ev = teval.SlidingWindowEvaluator(_TorchZoomStub(), fused_stitch=True,
+    ev = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", fused_stitch=True,
                                       scales=[scale], **STUB_KW)
     assert ev.fused_stitch
     got = ev.predict_probs(STUB_IMAGE)
@@ -124,9 +124,9 @@ def test_fused_path_matches_jax(scale):
 
 
 def test_fused_matches_unfused_in_the_port():
-    fused = teval.SlidingWindowEvaluator(_TorchZoomStub(), fused_stitch=True,
+    fused = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", fused_stitch=True,
                                          scales=[0.75], **STUB_KW)
-    plain = teval.SlidingWindowEvaluator(_TorchZoomStub(), fused_stitch=False,
+    plain = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", fused_stitch=False,
                                          scales=[0.75], **STUB_KW)
     a, b = fused.predict_probs(STUB_IMAGE), plain.predict_probs(STUB_IMAGE)
     np.testing.assert_allclose(a, b, rtol=1e-2, atol=2e-2)
@@ -136,19 +136,19 @@ def test_fused_matches_unfused_in_the_port():
 def test_construction_rules():
     kw = dict(STUB_KW, scales=[1.0])
     # auto dispatch: the fused kernel only on CUDA
-    assert not teval.SlidingWindowEvaluator(_TorchZoomStub(), **kw).fused_stitch
+    assert not teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", **kw).fused_stitch
     with pytest.raises(ValueError, match="requires flip"):
-        teval.SlidingWindowEvaluator(_TorchZoomStub(), fused_stitch=True,
+        teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", fused_stitch=True,
                                      **dict(kw, flip=False))
     with pytest.raises(NotImplementedError):
-        teval.SlidingWindowEvaluator(_TorchZoomStub(), mode="host", **kw)
+        teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", mode="host", **kw)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        teval.SlidingWindowEvaluator(_TorchZoomStub(), **dict(kw, scales=[0.5, 1.0]))
+        teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", **dict(kw, scales=[0.5, 1.0]))
     with pytest.raises(ValueError):
-        teval.SlidingWindowEvaluator(_TorchZoomStub(), mode="tpu", **kw)
+        teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", mode="tpu", **kw)
     # device_bucketed (the server's default) runs the same pipeline
-    a = teval.SlidingWindowEvaluator(_TorchZoomStub(), mode="device_bucketed", **kw)
-    b = teval.SlidingWindowEvaluator(_TorchZoomStub(), mode="device", **kw)
+    a = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", mode="device_bucketed", **kw)
+    b = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", mode="device", **kw)
     np.testing.assert_array_equal(a.predict(STUB_IMAGE), b.predict(STUB_IMAGE))
 
 

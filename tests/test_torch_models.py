@@ -200,7 +200,7 @@ def test_build_model_rules():
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     try:
         torch.backends.cudnn.allow_tf32 = True
-        m = build.build_model(cfg, dtype=torch.float32)
+        m = build.build_model(cfg, dtype=torch.float32, device="cpu")
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
     finally:
@@ -209,7 +209,7 @@ def test_build_model_rules():
     # arch psa builds PSANet; the mask derives from train_h/w and shrink
     psa = NS(**{**vars(cfg), "arch": "psa", "psa_type": 2, "compact": 0,
                 "shrink_factor": 2, "normalization_factor": 1.0, "psa_softmax": 1})
-    m = build.build_model(psa)
+    m = build.build_model(psa, device="cpu")
     assert isinstance(m, PSANet) and (m.psa.mask_h, m.psa.mask_w) == (5, 5)
     city = NS(**{**vars(psa), "train_h": 705, "train_w": 705})
     assert build.derive_psa_mask_dims(city) == (89, 89)

@@ -272,7 +272,7 @@ def test_psanet50_slice_matches_jax(psanet):
     want_probs = np.asarray(jev.predict_probs(image))
     want_pred = np.asarray(jev.predict(image))
 
-    ev = teval.SlidingWindowEvaluator(model, **kw)
+    ev = teval.SlidingWindowEvaluator(model, device="cpu", **kw)
     probs = ev.predict_probs(image)
     pred = ev.predict(image)
     assert probs.shape == (41, 57, 4) and pred.dtype == np.uint8
@@ -291,7 +291,7 @@ def test_build_psanet_defaults():
     m = build.build_model(NS(arch="psa", layers=50, classes=19, zoom_factor=8,
                              train_h=33, train_w=33, psa_type=2, compact=0,
                              shrink_factor=2, normalization_factor=None,
-                             psa_softmax=1, fused_attention=False))
+                             psa_softmax=1, fused_attention=False), device="cpu")
     assert (m.psa.mask_h, m.psa.mask_w) == (5, 5)
     assert m.psa.normalization_factor == 25.0 and m.psa.fused_attention is False
     assert m.psa.attention[3].weight.shape == (25, 512, 1, 1)
@@ -357,6 +357,48 @@ def test_plain_backward_matches_pallas_vjp(flash, n, c, hw, tiles, dtype, norm):
                       psa.psa_softmax_bmm_flash_bwd.launches)  # CPU: plain versions
     torch.testing.assert_close(fdx, dx, rtol=0, atol=0)
     torch.testing.assert_close(fda, da, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,c,hw,tile_j,norm", [
+    (1, 16, 97, 32, 1.3),  # ragged: hw not a multiple of 64 or of the tile
+    (2, 8, 70, 32, 2.0),
+    (1, 24, 100, 16, 1.0),
+])
+def test_tensor_core_rounding_within_bars(n, c, hw, tile_j, norm):
+    """The tensor-core kernels' rounding, emulated by their plain versions
+    (p rounded to bf16, and g for dx, then f32 bmm), against the plain f32
+    versions: within the card tests' element-wise bars (``_fwd_bars``,
+    ``_dx_bars`` in ``tests/test_torch_cuda.py``). And within the JAX
+    package's bf16 license, rtol = atol = 1e-2, of the Pallas kernel and its
+    VJP in interpret mode (DEFAULT precision for bf16 operands) on the same
+    numpy-seeded inputs."""
+    from tests.test_torch_cuda import _dx_bars, _fwd_bars
+
+    (jx, ja), (x, a) = _operands(hw + 4, n, c, hw, "bf16")
+    g = np.random.RandomState(hw + 5).randn(n, c, hw).astype(np.float32)
+    fwd = lambda xx, aa: jpsa.psa_softmax_bmm(xx, aa, norm, tile_j, True)  # noqa: E731
+    want_out, pull = jax.vjp(fwd, jx, ja)
+    want_out = np.asarray(want_out)
+    want_dx = np.asarray(pull(jnp.asarray(g))[0], np.float32)
+
+    gt = torch.from_numpy(g)
+    before = (psa.psa_softmax_bmm_wgmma.launches, psa.psa_softmax_bmm_bwd_dx_wgmma.launches)
+    out, m, l = psa.psa_softmax_bmm_wgmma(x, a, norm, return_stats=True)
+    dx = psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, gt, m, l, norm)
+    assert (psa.psa_softmax_bmm_wgmma.launches,
+            psa.psa_softmax_bmm_bwd_dx_wgmma.launches) == before  # CPU: plain versions
+    assert out.dtype == torch.float32 and dx.dtype == torch.bfloat16
+    torch.testing.assert_close(out, psa.psa_softmax_bmm_bf16_reference(x, a, norm),
+                               rtol=0, atol=0)
+
+    plain = psa.psa_softmax_bmm_reference(x, a, norm)
+    assert not torch.equal(out, plain)  # the emulation does round p
+    assert ((out - plain).abs() <= _fwd_bars(x, a, norm)).all()
+    dx32 = psa.psa_softmax_bmm_bwd_dx_reference(x.float(), a, gt, m, l, norm)
+    assert ((dx.float() - dx32).abs() <= _dx_bars(a, gt, m, l, dx32, norm)).all()
+
+    np.testing.assert_allclose(out.numpy(), want_out, rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(dx.float().numpy(), want_dx, rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.parametrize("entry", ["psa_softmax_bmm", "psa_softmax_bmm_flash"])

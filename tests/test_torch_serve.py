@@ -39,7 +39,7 @@ def test_serve_end_to_end(tmp_path):
     colors_path = tmp_path / "colors.txt"
     np.savetxt(colors_path, colors, fmt="%d")
     cfg = _cfg(colors_path=str(colors_path))
-    server = serve.make_server(cfg, port=0)
+    server = serve.make_server(cfg, port=0, device="cpu")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -66,7 +66,7 @@ def test_serve_end_to_end(tmp_path):
         assert gray.shape == (30, 40) and gray.max() < 4
 
         # transport only: byte-equal to driving the evaluator directly
-        evaluator = serve.build_evaluator(cfg, get_logger())
+        evaluator = serve.build_evaluator(cfg, get_logger(), device="cpu")
         np.testing.assert_array_equal(
             gray, evaluator.predict(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)))
 
@@ -101,20 +101,21 @@ def test_serve_end_to_end(tmp_path):
 def test_build_evaluator_weights(tmp_path):
     logger = get_logger()
     with pytest.raises(RuntimeError, match="no checkpoint"):
-        serve.build_evaluator(_cfg(allow_random_weights=False), logger)
+        serve.build_evaluator(_cfg(allow_random_weights=False), logger, device="cpu")
     with pytest.raises(NotImplementedError, match=".pth"):
-        serve.build_evaluator(_cfg(model_path=str(tmp_path)), logger)
+        serve.build_evaluator(_cfg(model_path=str(tmp_path)), logger, device="cpu")
 
     # a DDP-style .pth loads strictly and is what gets served
-    ref = serve.build_evaluator(_cfg(), logger, seed=7).model
+    ref = serve.build_evaluator(_cfg(), logger, seed=7, device="cpu").model
     path = str(tmp_path / "model.pth")
     torch.save({"state_dict": {f"module.{k}": v for k, v in ref.state_dict().items()}}, path)
-    ev = serve.build_evaluator(_cfg(model_path=path, allow_random_weights=False), logger)
+    ev = serve.build_evaluator(_cfg(model_path=path, allow_random_weights=False), logger,
+                               device="cpu")
     for k, v in ref.state_dict().items():
         assert torch.equal(ev.model.state_dict()[k], v), k
     # seeded random weights are reproducible and differ across seeds
-    a = serve.build_evaluator(_cfg(), logger, seed=7).model.cls[4].weight
-    b = serve.build_evaluator(_cfg(), logger, seed=8).model.cls[4].weight
+    a = serve.build_evaluator(_cfg(), logger, seed=7, device="cpu").model.cls[4].weight
+    b = serve.build_evaluator(_cfg(), logger, seed=8, device="cpu").model.cls[4].weight
     assert torch.equal(a, ref.cls[4].weight) and not torch.equal(a, b)
 
 
@@ -124,6 +125,59 @@ def test_main_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         serve.main(["--config", "config/cityscapes/cityscapes_psanet50.yaml",
                     "allow_random_weights", "True"])
+
+
+def _entry_points():
+    """Each entry point that takes a device, called with ``**kw``."""
+    from semseg_torch.engine.evaluator import SlidingWindowEvaluator
+    from semseg_torch.models.build import build_model
+
+    def evaluator(**kw):
+        model = build_model(_cfg(), device="cpu")
+        return SlidingWindowEvaluator(model, classes=4, crop_h=25, crop_w=25,
+                                      mean=serve.IMAGENET_MEAN, std=serve.IMAGENET_STD,
+                                      base_size=40, scales=[1.0], **kw)
+
+    return {
+        "build_model": lambda **kw: build_model(_cfg(), **kw),
+        "build_evaluator": lambda **kw: serve.build_evaluator(_cfg(), get_logger(), **kw),
+        "make_server": lambda **kw: serve.make_server(_cfg(), port=0, **kw),
+        "SlidingWindowEvaluator": evaluator,
+    }
+
+
+def _close(obj):
+    if hasattr(obj, "server_close"):
+        obj.server_close()
+
+
+@pytest.mark.parametrize("entry", ["build_model", "build_evaluator", "make_server",
+                                   "SlidingWindowEvaluator"])
+def test_entry_point_defaults_to_cuda(monkeypatch, entry):
+    """With no device the entry points run on the card: without CUDA they
+    raise and do not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _close(_entry_points()[entry]())
+
+
+@pytest.mark.parametrize("entry", ["build_model", "build_evaluator", "make_server",
+                                   "SlidingWindowEvaluator"])
+def test_entry_point_runs_on_cpu_when_asked(monkeypatch, entry):
+    """``device="cpu"`` runs there, CUDA or not."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    obj = _entry_points()[entry](device="cpu")
+    try:
+        if entry == "build_model":
+            assert next(obj.parameters()).device.type == "cpu"
+        elif entry == "make_server":
+            assert obj.server_address[1] > 0
+        else:
+            assert obj.device == torch.device("cpu")
+            pred = obj.predict(np.zeros((30, 40, 3), np.uint8))
+            assert pred.shape == (30, 40) and pred.max() < 4
+    finally:
+        _close(obj)
 
 
 def test_port_imports_no_jax():
@@ -143,10 +197,11 @@ def test_port_imports_no_jax():
                               train_h=25, train_w=25, test_h=25, test_w=25,
                               base_size=32, scales=[1.0], model_path="",
                               allow_random_weights=True, window_batch=2)
-        ev = semseg_torch.serve.build_evaluator(cfg, get_logger())
+        ev = semseg_torch.serve.build_evaluator(cfg, get_logger(), device="cpu")
         out = ev.predict(np.zeros((20, 32, 3), np.uint8))
         assert out.shape == (20, 32), out.shape
-        bad = sorted(m for m in ("jax", "flax", "cv2", "yaml", "PIL") if m in sys.modules)
+        bad = sorted(m for m in ("jax", "flax", "cv2", "yaml", "PIL", "semseg_tpu")
+                     if m in sys.modules)
         print("LOADED", bad)
     """)
     env = dict(os.environ, PYTHONPATH="")

@@ -259,7 +259,7 @@ def test_build_model_for_training():
     assert build.compute_dtype(SimpleNamespace()) == torch.float32
     with pytest.raises(ValueError, match="compute_dtype"):
         build.compute_dtype(SimpleNamespace(compute_dtype="float16"))
-    m = build.build_model(cfg, dtype=torch.bfloat16, train=True)
+    m = build.build_model(cfg, dtype=torch.bfloat16, device="cpu", train=True)
     assert m.training and all(p.dtype == torch.float32 for p in m.parameters())
     assert isinstance(m.cls[3], Dropout2d) and m.cls[3].p == 0.1
     logits, aux = m(torch.randn(2, 3, 33, 33))  # the PPM's 1x1 bin needs batch > 1
@@ -384,7 +384,7 @@ def test_trainer_dropout_is_seeded():
     labels = torch.from_numpy(rs.randint(0, 3, (2, 17, 17)))
 
     def losses_for(seed):
-        model = build.build_model(cfg, seed=1, train=True)
+        model = build.build_model(cfg, seed=1, device="cpu", train=True)
         assert model.cls[3].p == 0.1
         tr = trainer.Trainer(model, optim.make_sgd(model, 0.01), classes=3,
                              ignore_label=IGNORE, aux_weight=0.4, base_lr=0.01,
@@ -430,7 +430,8 @@ import sys
 import torch
 from semseg_torch.train import parse_args, run
 res = run(parse_args(sys.argv[1:]), device="cpu")
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
 ck = torch.load(res["checkpoints"][0], map_location="cpu", weights_only=True)
 print("RESULT", res["trainer"].step_count, len(ck["state_dict"]), loaded)
 """
@@ -439,7 +440,9 @@ print("RESULT", res["trainer"].step_count, len(ck["state_dict"]), loaded)
 def test_train_run_imports_no_jax(tmp_path):
     """``run(cfg, device='cpu')`` in a fresh process: 2 steps (4 samples,
     batch 2, uint8 wire), one checkpoint in reference naming, and no jax,
-    jaxlib or flax module ever imported."""
+    jaxlib, flax or ``semseg_tpu`` module ever imported (the port reads
+    configs and data through its own ``semseg_torch.config`` and
+    ``semseg_torch.data``)."""
     _write_dataset(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
