@@ -3,9 +3,12 @@
 No profiler of kernel internals runs on the card's machine, so this builds
 variants of ``semseg_torch/csrc/psa.cu`` with one piece of the tensor-core
 kernels removed each (the wgmma products, the exps, the loads of A, the
-operand copies, forming p, the operand pack) and times the forward and dx
-of every variant at the Cityscapes PSANet shapes (CUDA events over 20
-back-to-back launches, the library called directly). The variants' results
+operand copies, forming p, the operand pack; for da the wgmma products, the
+operand copies, the packs, the loads of A, the stores of da, the whole
+epilogue or the whole channel loop) and times
+the forward, dx and da of every variant at the Cityscapes PSANet shapes
+(CUDA events over 20 back-to-back launches, the library called directly;
+da without the caller's ``delta``). The variants' results
 are wrong by design: only their times mean anything. Builds go under
 ``build/psa_ablation/``.
 
@@ -38,6 +41,19 @@ VARIANTS = {
     "no_p": [("    if (more) produce(s + 1);\n", "")],
     "no_pack": [("  psa_pack_bf16_kernel<T><<<(unsigned)((total8 + 255) / 256), 256, 0, s>>>(\n"
                  "      src, pack, c, hw, cp, hwp, total8);\n", "")],
+    "da_no_wgmma": [("wgmma_m64n64k16<1>(acc[h], dx, desc_sw128_mn(base + (2 + h) * kDaHalf + "
+                     "k * 2048));", "")],
+    "da_no_operand": [("      cp_async16(base + (2 * op + half) * kDaHalf + swz(row, ch), src);\n",
+                       "")],
+    "da_no_pack": [("    psa_pack_bf16_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(x, xpk, c, hw, "
+                    "cp, hwp, total8);\n    psa_pack_bf16_kernel<float><<<blocks, 256, 0, s>>>(g, "
+                    "gpk, c, hw, cp, hwp, total8);\n", "")],
+    "da_no_A_loads": [("__ldg(araw + off + lane + 32 * k)", "(unsigned short)0x3F80")],
+    "da_no_stores": [("da[off + col] = __float2bfloat16_rn(",
+                      "if (p == 12345.f) da[off + col] = __float2bfloat16_rn(")],
+    "da_no_epilogue": [("for (int r0 = warp; r0 < kDaTile;", "for (int r0 = warp; r0 < 0;")],
+    "da_no_gemm": [("for (int s = 0; s < stages; ++s) {\n    cp_async_wait<kDaStages - 2>();",
+                    "for (int s = 0; s < 0; ++s) {\n    cp_async_wait<kDaStages - 2>();")],
 }
 OUT = ROOT / "build" / "psa_ablation"
 
@@ -89,7 +105,11 @@ def main():
         m, l = psa.psa_softmax_stats(a)
         out = torch.empty(n, c, hw, device=dev)
         dx = torch.empty(n, c, hw, device=dev, dtype=torch.bfloat16)
+        da = torch.empty_like(a)
         pack = psa._wgmma_pack(x)
+        da_pack = torch.empty(2 * psa._lib()["semseg_psa_da_wgmma_pack_elems"](n, c, hw),
+                              dtype=torch.bfloat16, device=dev)
+        delta = torch.randn(n, hw, generator=g0, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         row = []
         for name, so in libs.items():
@@ -97,11 +117,16 @@ def main():
             fwd, bwd = lib.semseg_psa_softmax_bmm_wgmma, lib.semseg_psa_bwd_dx_wgmma
             for fn in (fwd, bwd):
                 fn.argtypes, fn.restype = [ptr] * 6 + [i32] * 3 + [f32, ptr], ctypes.c_int
+            bda = lib.semseg_psa_bwd_da_wgmma
+            bda.argtypes, bda.restype = [ptr] * 8 + [i32] * 3 + [f32, ptr], ctypes.c_int
             t_fwd = ms(lambda: fwd(x.data_ptr(), a.data_ptr(), out.data_ptr(), None, None,
                                    pack.data_ptr(), n, c, hw, 1.0, stream))
             t_dx = ms(lambda: bwd(a.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
                                   dx.data_ptr(), pack.data_ptr(), n, c, hw, 1.0, stream))
-            row.append(f"{name} fwd {t_fwd:.4f} dx {t_dx:.4f}")
+            t_da = ms(lambda: bda(x.data_ptr(), g.data_ptr(), a.data_ptr(), m.data_ptr(),
+                                  l.data_ptr(), delta.data_ptr(), da.data_ptr(),
+                                  da_pack.data_ptr(), n, c, hw, 1.0, stream))
+            row.append(f"{name} fwd {t_fwd:.4f} dx {t_dx:.4f} da {t_da:.4f}")
         print(f"{(n, c, hw)} ms: " + "; ".join(row), flush=True)
     return 0
 

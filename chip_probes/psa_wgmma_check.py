@@ -1,11 +1,13 @@
 """Quick check of the tensor-core PSA kernels on one NVIDIA GPU.
 
-Builds ``semseg_torch/csrc/psa.cu``, runs the tensor-core forward and dx
-(bf16 operands) at small and Cityscapes shapes, and prints their largest
+Builds ``semseg_torch/csrc/psa.cu``, runs the tensor-core forward, dx and
+da (bf16 operands) at small and Cityscapes shapes, and prints their largest
 error against the plain f32 versions as a share of the element-wise bars
-of ``tests/test_torch_cuda.py``. At (N, 512, 2025) it also times both
-kernels and the SIMT kernels they replaced (CUDA events over 10 back-to-back
-calls). Faster than ``chip_smoke.py`` for iterating on the kernels.
+of ``tests/test_torch_cuda.py`` (da also against its bf16 plain version,
+and two calls compared bit for bit). At (N, 512, 2025) it also times the
+three kernels and the SIMT kernels they replaced (CUDA events over 10
+back-to-back calls of the entry points). Faster than ``chip_smoke.py`` for
+iterating on the kernels.
 
 Usage, from the repository root on a machine with the card:
     python3 chip_probes/psa_wgmma_check.py
@@ -40,11 +42,16 @@ def main():
         print("psa_wgmma_check: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    print(f"build {build_library('psa').seconds:.1f} s", flush=True)
+    b = build_library("psa")
+    print(f"build {b.seconds:.1f} s", flush=True)
+    log = b.log.splitlines()
+    for k, ln in enumerate(log):  # ptxas's registers and spills of the da kernel
+        if "Compiling entry function" in ln and "psa_da_wgmma" in ln:
+            print("\n".join(s.strip() for s in log[k:k + 4]), flush=True)
     dev = torch.device("cuda")
     norm = 1.3
-    for n, c, hw in [(1, 16, 64), (1, 130, 97), (3, 16, 200), (2, 64, 150), (8, 512, 2025),
-                     (16, 512, 2025)]:
+    for n, c, hw in [(1, 16, 64), (1, 130, 97), (3, 16, 200), (2, 64, 150), (1, 5, 1),
+                     (8, 512, 2025), (16, 512, 2025)]:
         g0 = torch.Generator(device=dev).manual_seed(hw)
         x = torch.randn(n, c, hw, generator=g0, device=dev).to(torch.bfloat16)
         a = (torch.randn(n, hw, hw, generator=g0, device=dev) * 3).to(torch.bfloat16)
@@ -68,13 +75,33 @@ def main():
             err = (dx.float() - dx32).abs()
             print(f"dx  {(n, c, hw)}: max err {err.max().item():.3e}, worst err/bar "
                   f"{(err / bar).max().item():.3f}", flush=True)
+            da = psa.psa_softmax_bmm_bwd_da_wgmma(x, a, g, m_ref, l_ref, want, norm)
+            torch.cuda.synchronize()
+            same = torch.equal(da, psa.psa_softmax_bmm_bwd_da_wgmma(x, a, g, m_ref, l_ref, want,
+                                                                     norm))
+            da16 = psa.psa_softmax_bmm_bwd_da_bf16_reference(x, a, g, m_ref, l_ref, want, norm)
+            da32 = psa.psa_softmax_bmm_bwd_da_reference(x.float(), a.float(), g, m_ref, l_ref,
+                                                        want, norm)
+            pe = psa._probs(a, m_ref, l_ref)
+            ulp = 2.0 ** (torch.floor(torch.log2(da32.abs().clamp_min(1e-30))) - 7)
+            bar = pe * 2.0 ** -8 * torch.bmm(x.float().abs().transpose(1, 2), g.abs()) / norm + ulp
+            err = (da.float() - da32).abs()
+            print(f"da  {(n, c, hw)}: max err {err.max().item():.3e}, worst err/bar "
+                  f"{(err / bar).max().item():.3f}, vs bf16 plain max "
+                  f"{(da.float() - da16.float()).abs().max().item():.3e}, repeat identical "
+                  f"{same}", flush=True)
             if hw == 2025:
                 t_new = ms(lambda: psa.psa_softmax_bmm_wgmma(x, a, norm))
                 t_old = ms(lambda: psa._forward_simt(x, a, norm, False, False))
                 t_dx = ms(lambda: psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m_ref, l_ref, norm))
                 t_dx_old = ms(lambda: psa._bwd_dx_simt(x, a, g, m_ref, l_ref, norm))
+                t_da = ms(lambda: psa.psa_softmax_bmm_bwd_da_wgmma(x, a, g, m_ref, l_ref, want,
+                                                                   norm))
+                t_da_old = ms(lambda: psa._bwd_da_simt(x, a, g, m_ref, l_ref, want, norm))
+                t_delta = ms(lambda: psa._delta(g, want))
                 print(f"times {(n, c, hw)}: fwd wgmma {t_new:.4f} ms vs simt {t_old:.4f}; "
-                      f"dx wgmma {t_dx:.4f} vs simt {t_dx_old:.4f}", flush=True)
+                      f"dx wgmma {t_dx:.4f} vs simt {t_dx_old:.4f}; da wgmma {t_da:.4f} vs "
+                      f"simt {t_da_old:.4f} (delta alone {t_delta:.4f})", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s")
     return 0
 

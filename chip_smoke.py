@@ -28,11 +28,13 @@ each (12 runs after 4):
    the bound;
 12. PSA backward kernels vs plain at the same extents: da, dx and the
    flash backward against the plain backward from the same statistics;
-   f32 within 1e-4 * max|plain| + 1e-5; bf16 dx on the tensor cores within
-   2^-7 (|g| @ p^T) / norm + one bf16 ulp of |plain| (``dx_bars``) and
-   1e-2; bf16 da, flash backward and the SIMT dx within one bf16 ulp of
-   max|plain| against the plain grads rounded to bf16; kernel, SIMT,
-   plain and plain-autograd times and the bounds;
+   f32 within 1e-4 * max|plain| + 1e-5; bf16 da and dx on the tensor cores
+   element by element within p 2^-8 (|x|^T |g|) / norm and 2^-7 (|g| @
+   p^T) / norm, each plus one bf16 ulp of |plain| (``da_bars``,
+   ``dx_bars``), two calls bit-identical; the bf16 flash backward and the
+   SIMT da and dx within one bf16 ulp of max|plain| against the plain grads
+   rounded to bf16; kernel, SIMT, plain and plain-autograd times and the
+   bounds;
 5. PSPNet slice: ``build_evaluator`` answers requests; each must launch the
    stitch kernel exactly twice (two chunks) and no PSA kernel; images/s;
 6. PSPNet fused vs plain stitch: argmax agreement >= 0.995, probabilities
@@ -53,8 +55,8 @@ each (12 runs after 4):
 13. PSANet50 training slice: 48 street-like 1024x2048 images with label
    PNGs, ``run`` with ``compute_dtype bfloat16``, ``batch_size 16`` (12 or
    8 if 16 does not fit), ``epochs 1``: every step launches the
-   tensor-core forward and dx and the da kernel twice each and nothing
-   else; finite losses;
+   tensor-core forward, da and dx twice each and nothing else; finite
+   losses;
 14. the train step alone on a device-resident batch (2 warm-up, 5 timed
    steps, the same launches per step): seconds per step, images/s, peak
    memory; the loader's images/s; a ``torch.profiler`` window of 2 steps
@@ -142,9 +144,10 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 def kernels():
     """The launch-counting wrappers of every kernel, by name.
-    ``psa_softmax_bmm`` and ``psa_softmax_bmm_bwd_dx`` count the SIMT
-    kernels (f32 operands); the ``_wgmma`` ones the tensor-core kernels
-    that the same entry points launch for bf16 operands."""
+    ``psa_softmax_bmm``, ``psa_softmax_bmm_bwd_da`` and
+    ``psa_softmax_bmm_bwd_dx`` count the SIMT kernels (f32 operands); the
+    ``_wgmma`` ones the tensor-core kernels that the same entry points
+    launch for bf16 operands."""
     from semseg_torch.ops import psa
     from semseg_torch.ops.stitch import upsample_softmax_flip
 
@@ -153,6 +156,7 @@ def kernels():
             "psa_softmax_bmm_wgmma": psa.psa_softmax_bmm_wgmma,
             "psa_softmax_bmm_flash": psa.psa_softmax_bmm_flash,
             "psa_softmax_bmm_bwd_da": psa.psa_softmax_bmm_bwd_da,
+            "psa_softmax_bmm_bwd_da_wgmma": psa.psa_softmax_bmm_bwd_da_wgmma,
             "psa_softmax_bmm_bwd_dx": psa.psa_softmax_bmm_bwd_dx,
             "psa_softmax_bmm_bwd_dx_wgmma": psa.psa_softmax_bmm_bwd_dx_wgmma,
             "psa_softmax_bmm_flash_bwd": psa.psa_softmax_bmm_flash_bwd}
@@ -204,6 +208,17 @@ def dx_bars(a, g, m, l, dx32, norm=1.0):
     p = _probs(a, m, l)
     ulp = 2.0 ** (torch.floor(torch.log2(dx32.abs().clamp_min(1e-30))) - 7)
     return 2.0 ** -7 * torch.bmm(g.abs(), p.transpose(1, 2)) / norm + ulp
+
+
+def da_bars(x, a, g, m, l, da32, norm=1.0):
+    """The tensor-core da's bar: g rounded to bf16 (x is bf16 already),
+    p 2^-8 (|x|^T |g|) / norm, plus one bf16 ulp of |plain| for the bf16
+    output (derivation at ``tests/test_torch_cuda.py::_da_bars``)."""
+    from semseg_torch.ops.psa import _probs
+
+    p = _probs(a, m, l)
+    ulp = 2.0 ** (torch.floor(torch.log2(da32.abs().clamp_min(1e-30))) - 7)
+    return p * 2.0 ** -8 * torch.bmm(x.float().abs().transpose(1, 2), g.abs()) / norm + ulp
 
 
 def launches(**nonzero):
@@ -581,15 +596,16 @@ def phase_shrink1(dev, image):
 def phase_psa_backward(dev):
     """The backward kernels against the plain backward at the recipe
     extents, from the kernels' own forward statistics (phase 12). f32: da,
-    dx (SIMT) and the flash backward within ``PSA_REL``. bf16: dx on the
-    tensor cores within ``dx_bars`` against the f32 plain dx, element by
-    element; da, the flash backward and the SIMT dx it replaced (launched
-    directly) within one bf16 ulp of max|plain| against the plain grads
-    rounded to bf16. Printed beside, not a gate: the largest |err| / (1e-2
-    + 1e-2 |plain|) of both bf16 dx kernels, the JAX package's bf16 license
-    (``tests/test_psa_pallas.py``), which its tests apply at A = randn and
-    small hw; here A = randn * 3 makes |dx| larger, and the bf16 output's
-    own rounding takes a share of it."""
+    dx (SIMT) and the flash backward within ``PSA_REL``. bf16: da and dx on
+    the tensor cores within ``da_bars`` and ``dx_bars`` against the f32
+    plain da and dx, element by element, and two calls of each
+    bit-identical; the flash backward and the SIMT da and dx they replaced
+    (launched directly) within one bf16 ulp of max|plain| against the plain
+    grads rounded to bf16. Printed beside, not a gate: the largest |err| /
+    (1e-2 + 1e-2 |plain|) of both bf16 dx kernels, the JAX package's bf16
+    license (``tests/test_psa_pallas.py``), which its tests apply at A =
+    randn and small hw; here A = randn * 3 makes |dx| larger, and the bf16
+    output's own rounding takes a share of it."""
     from semseg_torch.ops import psa
 
     def bf16_ulp(v):
@@ -608,6 +624,7 @@ def phase_psa_backward(dev):
                 fout, fm, fl = psa.psa_softmax_bmm_flash(x, a, return_stats=True)
                 da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out)
                 dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)
+                sda = psa._bwd_da_simt(x, a, g, m, l, out, 1.0) if bf16 else da
                 sdx = psa._bwd_dx_simt(x, a, g, m, l, 1.0) if bf16 else dx
                 fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout)
                 torch.cuda.synchronize()
@@ -617,35 +634,44 @@ def phase_psa_backward(dev):
                     bar_dx = PSA_REL * dx32.abs().max().item() + 1e-5
                     bar_da = PSA_REL * da32.abs().max().item() + 1e-5
                     dx_ratio = (dx - dx32).abs().max().item() / bar_dx
+                    da_ratio = (da - da32).abs().max().item() / bar_da
                 else:  # one bf16 ulp of max|plain|, against plain rounded to bf16
                     want_dx, want_da = dx32.to(dt).float(), da32.to(dt).float()
                     bar_dx = bf16_ulp(dx32.abs().max().item())
                     bar_da = bf16_ulp(da32.abs().max().item())
                     dx_ratio = ((dx.float() - dx32).abs() / dx_bars(a, g, m, l, dx32)).max().item()
-                    if not dx_ratio <= 1.0:
-                        raise AssertionError(f"tensor-core dx {label}: {dx_ratio} of its bar")
+                    da_ratio = ((da.float() - da32).abs()
+                                / da_bars(x, a, g, m, l, da32)).max().item()
+                    if not (dx_ratio <= 1.0 and da_ratio <= 1.0):
+                        raise AssertionError(f"tensor-core {label}: dx at {dx_ratio}, da at "
+                                             f"{da_ratio} of their bars")
                     lic = {k: ((v.float() - dx32).abs() / (1e-2 + 1e-2 * dx32.abs())).max().item()
                            for k, v in (("tensor-core", dx), ("SIMT", sdx))}
-                    if not torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)):
-                        raise AssertionError(f"tensor-core dx {label}: two calls differ")
-                errs = {"da": (da.float() - want_da).abs().max().item(),
+                    if not (torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)) and
+                            torch.equal(da, psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out))):
+                        raise AssertionError(f"tensor-core {label}: two calls differ")
+                errs = {"da": (da.float() - (da32 if bf16 else want_da)).abs().max().item(),
                         "dx": (dx.float() - (dx32 if bf16 else want_dx)).abs().max().item(),
+                        "simt_da": (sda.float() - want_da).abs().max().item(),
                         "simt_dx": (sdx.float() - want_dx).abs().max().item(),
                         "flash_da": (fda.float() - want_da).abs().max().item(),
                         "flash_dx": (fdx.float() - want_dx).abs().max().item()}
                 del dx32, da32, want_dx, want_da
-                bars = {"da": bar_da, "simt_dx": bar_dx, "flash_da": bar_da, "flash_dx": bar_dx}
-                if any(errs[k] > bars[k] for k in bars) or (not bf16 and dx_ratio > 1.0):
+                bars = {"simt_da": bar_da, "simt_dx": bar_dx, "flash_da": bar_da,
+                        "flash_dx": bar_dx}
+                if any(errs[k] > bars[k] for k in bars) or max(dx_ratio, da_ratio) > 1.0:
                     raise AssertionError(f"psa backward {label} {dt}: errors {errs}, bars {bars}")
                 if not (da.dtype == fda.dtype == dx.dtype == fdx.dtype == dt):
                     raise AssertionError("backward kernels did not return the primal dtypes")
                 ms_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out))
+                ms_sda = (cuda_ms(lambda: psa._bwd_da_simt(x, a, g, m, l, out, 1.0)) if bf16
+                          else ms_da)
                 ms_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l))
                 ms_sdx = cuda_ms(lambda: psa._bwd_dx_simt(x, a, g, m, l, 1.0)) if bf16 else ms_dx
                 ms_f = cuda_ms(lambda: psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout))
                 plain_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out))
                 plain_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l))
-                del da, dx, sdx, fda, fdx
+                del da, dx, sda, sdx, fda, fdx
             xr, ar = x.detach().requires_grad_(), a.detach().requires_grad_()
             o = psa.psa_softmax_bmm_reference(xr, ar)
             autograd_ms = cuda_ms(lambda: torch.autograd.grad(o, (xr, ar), g, retain_graph=True))
@@ -654,19 +680,24 @@ def phase_psa_backward(dev):
             dname = "bf16" if bf16 else "f32"
             dx_bound, dx_by = psa_dx_bound(n, c, hw, dt)
             da_bound, da_by = psa_da_bound(n, c, hw, dt)
+            kind = "tensor-core" if bf16 else "SIMT"
             log(f"[12 psa backward] {label} (N,C,hw)=({n},{c},{hw}) {dname}: errors "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                + f" (bars da {bar_da:.3e}, dx {bar_dx:.3e}; dx at {dx_ratio:.3f} of its bar"
+                + f" (bars da {bar_da:.3e}, dx {bar_dx:.3e}; da at {da_ratio:.3f}, dx at "
+                f"{dx_ratio:.3f} of their bars"
                 + (f"; 1e-2 license ratio tensor-core dx {lic['tensor-core']:.3f}, SIMT dx "
                    f"{lic['SIMT']:.3f}" if bf16 else "") + "); "
-                f"da {ms_da:.4f} ms ({gflop / ms_da:.1f} TFLOP/s; bound {da_bound:.4f} by {da_by}), "
-                f"dx ({'tensor-core' if bf16 else 'SIMT'}) {ms_dx:.4f} ms ({gflop / ms_dx:.1f}; "
+                f"da ({kind}) {ms_da:.4f} ms ({gflop / ms_da:.1f} TFLOP/s; bound {da_bound:.4f} "
+                f"by {da_by})"
+                + (f", SIMT da {ms_sda:.4f} ms ({gflop / ms_sda:.1f})" if bf16 else "")
+                + f", dx ({kind}) {ms_dx:.4f} ms ({gflop / ms_dx:.1f}; "
                 f"bound {dx_bound:.4f} by {dx_by})"
                 + (f", SIMT dx {ms_sdx:.4f} ms ({gflop / ms_sdx:.1f})" if bf16 else "")
                 + f", flash bwd {ms_f:.4f} ms ({2 * gflop / ms_f:.1f}); plain da {plain_da:.4f}, "
                 f"dx {plain_dx:.4f}, da+dx {plain_da + plain_dx:.4f} ms; autograd of the plain "
                 f"forward {autograd_ms:.4f} ms")
-            results[(label, dname)] = dict(errs=errs, ms_da=ms_da, ms_dx=ms_dx, ms_sdx=ms_sdx,
+            results[(label, dname)] = dict(errs=errs, ms_da=ms_da, ms_sda=ms_sda, ms_dx=ms_dx,
+                                           ms_sdx=ms_sdx, da_ratio=da_ratio,
                                            ms_f=ms_f, plain_da=plain_da, plain_dx=plain_dx,
                                            autograd_ms=autograd_ms, dx_bound=(dx_bound, dx_by),
                                            da_bound=(da_bound, da_by))
@@ -710,9 +741,9 @@ def train_cfg(root, batch_size):
         "epochs", "1", "print_freq", "1", "compute_dtype", "bfloat16"])
 
 
-# Per train step, two directions: bf16 runs the tensor-core forward and dx,
-# f32 the SIMT ones; da is SIMT for both.
-TRAIN_STEP = dict(psa_softmax_bmm_wgmma=2, psa_softmax_bmm_bwd_da=2,
+# Per train step, two directions: bf16 runs the tensor-core forward, da and
+# dx, f32 the SIMT ones.
+TRAIN_STEP = dict(psa_softmax_bmm_wgmma=2, psa_softmax_bmm_bwd_da_wgmma=2,
                   psa_softmax_bmm_bwd_dx_wgmma=2)
 F32_TRAIN_STEP = dict(psa_softmax_bmm=2, psa_softmax_bmm_bwd_da=2, psa_softmax_bmm_bwd_dx=2)
 
@@ -1108,9 +1139,12 @@ def main():
         ("psa_softmax_bmm_flash", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:303", shrink1_counts, flash["err_f"],
          flash["ms_f"], flash["plain_ms"], psa_fwd_bound(1, 512, 7921, f32)),
-        ("psa_softmax_bmm_bwd_da", "semseg_torch/csrc/psa.cu",
+        ("psa_softmax_bmm_bwd_da_wgmma", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:125", train_counts, bwd16["errs"]["da"],
          bwd16["ms_da"], bwd16["plain_da"], bwd16["da_bound"]),
+        ("psa_softmax_bmm_bwd_da", "semseg_torch/csrc/psa.cu",
+         "semseg_tpu/ops/psa_pallas.py:125", f32_counts, bwd32["errs"]["da"],
+         bwd32["ms_da"], bwd32["plain_da"], bwd32["da_bound"]),
         ("psa_softmax_bmm_bwd_dx_wgmma", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:140", train_counts, bwd16["errs"]["dx"],
          bwd16["ms_dx"], bwd16["plain_dx"], bwd16["dx_bound"]),

@@ -8,9 +8,10 @@
 // [N, C, HW]. The operand dtype picks the precision, as the TPU kernels'
 // _precision_for does (psa_pallas.py:75-81): the SIMT kernels below do all
 // math in f32 on the CUDA cores (plain FMAs) and serve f32 operands (the
-// resident forward and dx) or both dtypes (the flash kernels and da); for
-// bf16 operands the resident forward and dx run on the tensor cores with p
-// rounded to bf16 (psa_wgmma_kernel, in the second part of this file).
+// resident forward, da and dx) or both dtypes (the flash kernels); for
+// bf16 operands the resident forward, da and dx run on the tensor cores with
+// p (forward, dx) or g (da, dx) rounded to bf16 (psa_wgmma_kernel and
+// psa_da_wgmma_kernel, in the second part of this file).
 //
 // Replaces (semseg_tpu/ops/psa_pallas.py):
 // - semseg_psa_softmax_bmm (resident forward) -> _fwd_kernel (:48): an
@@ -31,11 +32,11 @@
 // in the tile; a Hopper block that owns an i-tile of da cannot, so both
 // backward paths use the identity.
 //
-// Bound on an H100: f32 FMA throughput. On the Cityscapes PSANet path each
-// of the five is one GEMM of 2 * 8 * 512 * 2025^2 = 33.6 GFLOP (the flash
-// backward two) against 65.6 MB of bf16 A: about 500 FLOP per byte of A,
-// far above the card's f32 ridge, so A's bytes are small beside the
-// arithmetic.
+// Bound on an H100 (f32 operands): f32 FMA throughput. On the Cityscapes
+// PSANet path each of the five is one GEMM of 2 * 8 * 512 * 2025^2 = 33.6
+// GFLOP (the flash backward two) against 131 MB of f32 A: about 250 FLOP
+// per byte of A, far above the card's f32 ridge, so A's bytes are small
+// beside the arithmetic.
 //
 // Design: every kernel is the same register-tiled SIMT GEMM,
 // acc[M = 128][N = 64] += sum_k S1[k][m] * S2[k][n], 256 threads, stages of
@@ -71,8 +72,10 @@
 // The exps cost HW * HW * ceil(C / 128) per forward launch (x2 for resident)
 // and HW * HW per backward launch, about 1 % of the FMAs at C = 512. Double
 // buffering and wider register tiles are left for later work. The resident
-// forward and dx kernels of this part serve f32 operands only; the wrappers
-// send bf16 ones to the tensor-core kernels (second part of this file).
+// forward, da and dx kernels of this part serve f32 operands only (the SIMT
+// da and dx stay reachable on bf16 operands, for comparison only); the
+// wrappers send bf16 ones to the tensor-core kernels (second part of this
+// file).
 //
 // Interface: plain C, bound from Python with ctypes. Every launch goes on
 // the caller's stream, does not synchronise and allocates nothing; the
@@ -524,11 +527,12 @@ psa_flash_bwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernels for bf16 operands: the resident forward and dx.
+// Tensor-core kernels for bf16 operands: the resident forward, dx and da.
 //
 // They replace, for bf16 operands, the TPU kernels
 // - _fwd_kernel (psa_pallas.py:48, pallas_call :95): psa_wgmma_kernel<kMT, false>;
-// - _bwd_dx_kernel (psa_pallas.py:140, pallas_call :197): psa_wgmma_kernel<kMT, true>.
+// - _bwd_dx_kernel (psa_pallas.py:140, pallas_call :197): psa_wgmma_kernel<kMT, true>;
+// - _bwd_da_kernel (psa_pallas.py:125, pallas_call :184): psa_da_wgmma_kernel.
 // f32 operands keep the SIMT kernels above. This is the TPU kernels' own
 // rule (_precision_for, psa_pallas.py:75-81): f32 operands run at HIGHEST
 // precision; bf16 operands at DEFAULT, one bf16 MXU pass, so p (and g for
@@ -584,6 +588,29 @@ psa_flash_bwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
 // Edges: source rows and columns past hw give p = 0 (loaded as -inf);
 // padded channels and columns are masked on store. Any C and hw. Nothing
 // carries between blocks: two calls give bit-identical results.
+//
+// da (psa_da_wgmma_kernel): dP = x^T g / norm on the tensor cores with g
+// rounded to bf16 once (the TPU's DEFAULT pass), then da = p (dP - delta)
+// in the epilogue, p = exp(a - m) / l from the forward's statistics, delta
+// = sum_c g out from the caller, written in bf16.
+// - Bound at (16, 512, 2025): 67.2 GFLOP (0.068 ms at 989 TFLOP/s) against
+//   428 MB (A read and da written, 131 MB each; x, f32 g and out; 0.128
+//   ms at 3.35 TB/s): bytes.
+// - GEMM M = i, N = j, K = c. A block owns 128 source rows x 128 query
+//   columns and all channels (no split K, no atomics; grid n-slowest, so a
+//   batch row's packs, 2 MB each, stay in L2); warpgroup w holds rows 64 w
+//   .. 64 w + 63 in two m64n64 accumulators (64 registers), 2 blocks an SM.
+// - Operands: x and g are packed by psa_pack_bf16_kernel into zero-padded
+//   bf16 [N, Cp, HWp] copies (Cp a multiple of 64, HWp of 128; the pack
+//   rounds g), whose channel rows are exactly wgmma's MN-major layout: a
+//   stage of 64 channels is 64 rows of 128 bytes per 64-position half,
+//   copied with cp.async into the 128-byte swizzle, and wgmma reads both
+//   operands transposed (desc_sw128_mn: a K step of 16 is 2048 bytes). A
+//   ring of three 32 KB stages keeps two stages of copies ahead.
+// - Epilogue: dP (times 1/norm) goes through shared memory (the ring), then
+//   a warp walks rows of the tile: A read and da written along the rows, 2
+//   bytes a lane (rows of odd hw are 2-byte aligned), coalesced; m, l and
+//   delta loaded once per column; exp as ex2 of an FMA.
 
 namespace tc {
 
@@ -662,9 +689,21 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64], both read from shared memory.
+// wgmma shared-memory descriptor of an MN-major, 128-byte-swizzled tile of
+// 64 M (or N) elements: each K index is one 128-byte row, 8-row groups 1024
+// bytes apart. With one 64-element atom along MN the two byte offsets are
+// the 8-row group stride and an unused atom stride; both are set to 1024.
+// A K step of 16 adds 2048 bytes to `addr`.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], both read from shared memory, K-major
+// (kTrans = 0) or MN-major (kTrans = 1, both operands transposed).
 // Thread t of the warpgroup holds d[4 q + 2 h + e] = row 16 (t / 32) +
 // (t % 32) / 4 + 8 h, column 8 q + 2 (t % 4) + e.
+template <int kTrans = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -673,7 +712,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
+      "%32, %33, p, 1, 1, %35, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -681,8 +720,16 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTrans));
 }
+
+// 2^x on the special function unit (flush-to-zero; x <= 0 where used).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float bf16_bits(unsigned short b) {
   return __uint_as_float((uint32_t)b << 16);
@@ -947,6 +994,192 @@ psa_wgmma_kernel(const __nv_bfloat16* __restrict__ op, const __nv_bfloat16* __re
   }
 }
 
+// ---- da: dP = x^T g on the tensor cores, the softmax VJP in the epilogue.
+constexpr int kDaTile = 128;                       // source rows i and query columns j a block
+constexpr int kDaStages = 3;                       // ring of channel stages
+constexpr int kDaHalf = kTile * kRow;              // 64 channels x 64 positions, 8 KB
+constexpr int kDaStage = 2 * 2 * kDaHalf;          // x and g, two 64-position halves each
+constexpr int kDaOutStride = kDaTile + 8;          // f32 epilogue row stride: conflict-free
+constexpr int kDaSmem = 1024 + kDaStages * kDaStage;
+static_assert(kDaTile * kDaOutStride * 4 <= kDaStages * kDaStage,
+              "the epilogue staging fits in the ring");
+
+// Packs for da: N x Cp x HWp with Cp a multiple of the 64-channel stage and
+// HWp of the 128-position tile.
+inline int da_cp(int c) { return (c + kTile - 1) / kTile * kTile; }
+inline int da_hwp(int hw) { return (hw + kDaTile - 1) / kDaTile * kDaTile; }
+
+// da[n, i, j] = p (inv_norm sum_c x[c, i] g[c, j] - delta[j]), p = exp(a -
+// m[j]) / l[j], bf16. xp and gp are the bf16 packs of x and g ([N, Cp,
+// HWp], zero-padded). Grid (HWp / 128 column tiles, HWp / 128 row tiles,
+// N), 256 threads, kDaSmem bytes of dynamic shared memory. Warpgroup w owns
+// rows 64 w .. 64 w + 63 of the block's i-tile and all 128 columns (two
+// m64n64 accumulators). Both operands are read MN-major straight from the
+// packs' rows (channel c: 64 consecutive positions, 128 bytes), so wgmma
+// takes them transposed.
+__global__ void __launch_bounds__(kThreads, 2)
+psa_da_wgmma_kernel(const __nv_bfloat16* __restrict__ xp, const __nv_bfloat16* __restrict__ gp,
+                    const __nv_bfloat16* __restrict__ a, const float* __restrict__ m_in,
+                    const float* __restrict__ l_in, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ da, int HW, int Cp, int HWp, float inv_norm) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = smem_addr(smem);
+  const int j0 = blockIdx.x * kDaTile;
+  const int i0 = blockIdx.y * kDaTile;
+  const long long n = blockIdx.z;
+  const __nv_bfloat16* xn = xp + n * Cp * (long long)HWp + i0;
+  const __nv_bfloat16* gn = gp + n * Cp * (long long)HWp + j0;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+
+  // Stage layout: [x, g][64-position half][channel row of 128 bytes], each
+  // 8 KB half in the 128-byte swizzle.
+  auto load_stage = [&](int buf, int c0) {
+    const uint32_t base = s0 + buf * kDaStage;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int id = tid + kThreads * u;
+      const int op = u / 4, half = (id / 512) % 2, row = (id / 8) % kTile, ch = id % 8;
+      const __nv_bfloat16* src =
+          (op ? gn : xn) + (long long)(c0 + row) * HWp + half * kTile + ch * 8;
+      cp_async16(base + (2 * op + half) * kDaHalf + swz(row, ch), src);
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[h][e] = 0.f;
+  }
+  // A commit group per stage slot, empty past the last stage, so that
+  // "all but the newest kDaStages - 2 groups done" means stage s is in.
+  const int stages = Cp / kTile;
+#pragma unroll
+  for (int s = 0; s < kDaStages - 1; ++s) {
+    if (s < stages) {
+      load_stage(s, s * kTile);
+    } else {
+      cp_async_commit();
+    }
+  }
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<kDaStages - 2>();
+    fence_async_shared();
+    __syncthreads();  // stage s is in for all; stage s - 1's products are done
+    const int next = s + kDaStages - 1;
+    if (next < stages) {
+      load_stage(next % kDaStages, next * kTile);
+    } else {
+      cp_async_commit();
+    }
+    const uint32_t base = s0 + (s % kDaStages) * kDaStage;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kTile / 16; ++k) {
+      const uint64_t dx = desc_sw128_mn(base + wg * kDaHalf + k * 2048);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        wgmma_m64n64k16<1>(acc[h], dx, desc_sw128_mn(base + (2 + h) * kDaHalf + k * 2048));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it becomes the epilogue's staging
+
+  // dP tile -> shared [128 i][kDaOutStride] f32.
+  float* so = reinterpret_cast<float*>(smem);
+  {
+    const int warp = (tid % 128) / 32;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = wg * 64 + warp * 16 + lane / 4 + 8 * r;
+          const int col = h * 64 + 8 * q + 2 * (lane % 4);
+          *reinterpret_cast<float2*>(so + row * kDaOutStride + col) =
+              make_float2(acc[h][4 * q + 2 * r] * inv_norm, acc[h][4 * q + 2 * r + 1] * inv_norm);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // A warp walks rows i; lane takes columns j0 + lane + 32 k, so A is read
+  // and da written along the rows (2-byte aligned at odd hw), coalesced.
+  float cm[4], cr[4], cd[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = j0 + lane + 32 * k;
+    const bool in = j < HW;
+    cm[k] = in ? __ldg(m_in + n * HW + j) * kLog2e : 0.f;
+    cr[k] = in ? 1.f / __ldg(l_in + n * HW + j) : 0.f;
+    cd[k] = in ? __ldg(delta + n * HW + j) : 0.f;
+  }
+  const unsigned short* araw = reinterpret_cast<const unsigned short*>(a);
+  const int warp = tid / 32;
+  for (int r0 = warp; r0 < kDaTile; r0 += 4 * (kThreads / 32)) {
+    unsigned short av[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + r0 + r * (kThreads / 32);
+      const long long off = (n * HW + i) * (long long)HW + j0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = j0 + lane + 32 * k;
+        av[r][k] = (i < HW && j < HW) ? __ldg(araw + off + lane + 32 * k) : (unsigned short)0;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = r0 + r * (kThreads / 32);
+      const int i = i0 + row;
+      const long long off = (n * HW + i) * (long long)HW + j0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = lane + 32 * k;
+        if (i < HW && j0 + col < HW) {
+          const float p = exp2_ftz(fmaf(bf16_bits(av[r][k]), kLog2e, -cm[k])) * cr[k];
+          da[off + col] = __float2bfloat16_rn(p * (so[row * kDaOutStride + col] - cd[k]));
+        }
+      }
+    }
+  }
+}
+
+int launch_da(const __nv_bfloat16* x, const float* g, const __nv_bfloat16* a, const float* m,
+              const float* l, const float* delta, __nv_bfloat16* da, __nv_bfloat16* pack, int n,
+              int c, int hw, float inv_norm, cudaStream_t s) {
+  if (n == 0 || hw == 0) return 0;
+  const int cp = da_cp(c), hwp = da_hwp(hw);
+  const long long total8 = (long long)n * cp * hwp / 8;
+  __nv_bfloat16* xpk = pack;
+  __nv_bfloat16* gpk = pack + (long long)n * cp * hwp;
+  if (total8 > 0) {
+    const unsigned blocks = (unsigned)((total8 + 255) / 256);
+    psa_pack_bf16_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(x, xpk, c, hw, cp, hwp, total8);
+    psa_pack_bf16_kernel<float><<<blocks, 256, 0, s>>>(g, gpk, c, hw, cp, hwp, total8);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(psa_da_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDaSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(hwp / kDaTile, hwp / kDaTile, n);
+  psa_da_wgmma_kernel<<<grid, kThreads, kDaSmem, s>>>(xpk, gpk, a, m, l, delta, da, hw, cp, hwp,
+                                                      inv_norm);
+  return (int)cudaGetLastError();
+}
+
 // Elements of the packed operand for (n, c, hw): N x Cp x HWp.
 inline long long pack_elems(int n, int c, int hw) {
   const int rows = 128 * m_tiles(c);
@@ -1103,6 +1336,21 @@ extern "C" int semseg_psa_softmax_bmm_wgmma(const void* x, const void* a, void* 
                                             float inv_norm, void* stream) {
   return tc::dispatch<false>((const __nv_bfloat16*)x, a, nullptr, nullptr, out, (float*)m,
                              (float*)l, xpack, n, c, hw, inv_norm, stream);
+}
+
+// Elements of one of da's two packs (x, then g, in one buffer).
+extern "C" long long semseg_psa_da_wgmma_pack_elems(int n, int c, int hw) {
+  return (long long)n * tc::da_cp(c) * tc::da_hwp(hw);
+}
+
+extern "C" int semseg_psa_bwd_da_wgmma(const void* x, const void* g, const void* a,
+                                       const void* m, const void* l, const void* delta, void* da,
+                                       void* pack, int n, int c, int hw, float inv_norm,
+                                       void* stream) {
+  return tc::launch_da((const __nv_bfloat16*)x, (const float*)g, (const __nv_bfloat16*)a,
+                       (const float*)m, (const float*)l, (const float*)delta,
+                       (__nv_bfloat16*)da, (__nv_bfloat16*)pack, n, c, hw, inv_norm,
+                       (cudaStream_t)stream);
 }
 
 extern "C" int semseg_psa_bwd_dx_wgmma(const void* a, const void* g, const void* m,

@@ -13,7 +13,7 @@ attention to device memory. ``x`` is ``[N, C, HW]`` and ``A`` is
 bfloat16 operands may run the product at DEFAULT precision, one bf16 pass
 with ``p`` (and ``g`` in the backward) rounded to bfloat16 and float32 sums.
 
-Seven kernels in ``csrc/psa.cu``. Forward, picked by
+Eight kernels in ``csrc/psa.cu``. Forward, picked by
 :func:`select_psa_kernel`:
 - **resident** (:func:`psa_softmax_bmm`): all source rows per query
   tile. float32 operands run the f32 SIMT kernel (a first pass over the
@@ -28,11 +28,12 @@ Backward, from the forward's ``m``, ``l`` and output (p is recomputed as
 ``exp(A - m) / l``; the softmax VJP's column term comes from the flash
 identity ``sum_i p * dP = sum_c g * out``):
 - resident: :func:`psa_softmax_bmm_bwd_da` and :func:`psa_softmax_bmm_bwd_dx`
-  (float32 operands: the SIMT dx kernel; bfloat16: the tensor-core one,
+  (float32 operands: the SIMT kernels; bfloat16: the tensor-core ones,
+  :func:`psa_softmax_bmm_bwd_da_wgmma` and
   :func:`psa_softmax_bmm_bwd_dx_wgmma`);
 - flash: :func:`psa_softmax_bmm_flash_bwd`, both gradients in one launch.
 The dtype rule is a rule, not a fallback: no bf16 call reaches the SIMT
-resident forward or dx kernel through these entry points.
+resident forward, da or dx kernel through these entry points.
 
 :func:`psa_softmax_bmm` and :func:`psa_softmax_bmm_flash` are
 differentiable: while grad is enabled and an input requires it, they run
@@ -100,6 +101,16 @@ def psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out, norm: float = 1.0):
     return (_probs(a, m, l) * (dp - _delta(g, out)[:, None, :])).to(a.dtype)
 
 
+def psa_softmax_bmm_bwd_da_bf16_reference(x, a, g, m, l, out, norm: float = 1.0):
+    """Plain version of the tensor-core da: ``g`` rounded to bfloat16 (the
+    TPU's DEFAULT-precision operand; ``x`` is bfloat16 already), then the
+    float32 math of :func:`psa_softmax_bmm_bwd_da_reference` with ``delta``
+    from the float32 ``g``, returned in bfloat16."""
+    gb = g.to(torch.bfloat16).float()
+    dp = torch.bmm(x.float().transpose(1, 2), gb) / norm
+    return (_probs(a, m, l) * (dp - _delta(g, out)[:, None, :])).to(torch.bfloat16)
+
+
 def psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l, norm: float = 1.0):
     """Plain version of the dx kernels: ``dx = g p^T / norm`` in float32,
     returned in ``x``'s dtype."""
@@ -154,6 +165,7 @@ def _lib():
         "semseg_psa_flash_bwd": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
         "semseg_psa_softmax_bmm_wgmma": [_P] * 6 + [_I] * 3 + [_F, _P],
         "semseg_psa_bwd_dx_wgmma": [_P] * 6 + [_I] * 3 + [_F, _P],
+        "semseg_psa_bwd_da_wgmma": [_P] * 8 + [_I] * 3 + [_F, _P],
     }
     fns = {}
     for name, argtypes in signatures.items():
@@ -161,9 +173,10 @@ def _lib():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
-    fn = lib.semseg_psa_wgmma_pack_elems
-    fn.argtypes, fn.restype = [_I] * 3, ctypes.c_longlong
-    fns["semseg_psa_wgmma_pack_elems"] = fn
+    for name in ("semseg_psa_wgmma_pack_elems", "semseg_psa_da_wgmma_pack_elems"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [_I] * 3, ctypes.c_longlong
+        fns[name] = fn
     return fns
 
 
@@ -367,12 +380,21 @@ psa_softmax_bmm_flash.launches = 0
 def psa_softmax_bmm_bwd_da(x, a, g, m, l, out, norm: float = 1.0) -> torch.Tensor:
     """Resident backward, ``da = p * (x^T g / norm - sum_c g * out)`` in
     ``a``'s dtype (``psa_pallas.py::_bwd_da_kernel``). CPU tensors run the
-    plain version; CUDA tensors run the kernel and add one to
-    ``psa_softmax_bmm_bwd_da.launches``."""
+    plain version; float32 CUDA tensors run the SIMT kernel and add one to
+    ``psa_softmax_bmm_bwd_da.launches``; bfloat16 ones the tensor-core
+    kernel (:func:`psa_softmax_bmm_bwd_da_wgmma`)."""
     if x.device.type == "cpu":
         return psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out, norm)
     _check_cuda(x, a)
     _check_cuda_f32(x, g=g, m=m, l=l, out=out)
+    if x.dtype == torch.bfloat16:
+        return _bwd_da_wgmma(x, a, g, m, l, out, norm)
+    return _bwd_da_simt(x, a, g, m, l, out, norm)
+
+
+def _bwd_da_simt(x, a, g, m, l, out, norm):
+    """The SIMT da kernel (f32 math) on checked CUDA operands of either
+    dtype."""
     n, c, hw = x.shape
     delta = _delta(g, out)
     da = torch.empty_like(a)
@@ -383,6 +405,39 @@ def psa_softmax_bmm_bwd_da(x, a, g, m, l, out, norm: float = 1.0) -> torch.Tenso
 
 
 psa_softmax_bmm_bwd_da.launches = 0
+
+
+def _bwd_da_wgmma(x, a, g, m, l, out, norm):
+    """The tensor-core da kernel on checked bfloat16 CUDA operands."""
+    n, c, hw = x.shape
+    delta = _delta(g, out)
+    da = torch.empty_like(a)
+    elems = _lib()["semseg_psa_da_wgmma_pack_elems"](n, c, hw)
+    pack = torch.empty(2 * elems, dtype=torch.bfloat16, device=x.device)
+    _launch("semseg_psa_bwd_da_wgmma", x, _ptr(x), _ptr(g), _ptr(a), _ptr(m), _ptr(l),
+            _ptr(delta), _ptr(da), _ptr(pack), n, c, hw, 1.0 / norm)
+    psa_softmax_bmm_bwd_da_wgmma.launches += 1
+    return da
+
+
+def psa_softmax_bmm_bwd_da_wgmma(x, a, g, m, l, out, norm: float = 1.0) -> torch.Tensor:
+    """Resident da on the tensor cores, for bfloat16 operands: ``g``
+    rounded to bfloat16, ``dP = x^T g / norm`` summed in float32
+    (``psa_pallas.py::_bwd_da_kernel`` at DEFAULT precision), then ``da = p
+    * (dP - sum_c g * out)`` with ``p = exp(a - m) / l``, returned in
+    bfloat16. CPU tensors run the plain version
+    (:func:`psa_softmax_bmm_bwd_da_bf16_reference`); CUDA tensors must be
+    bfloat16 (``g``, ``out``, ``m``, ``l`` float32), run the kernel and add
+    one to ``psa_softmax_bmm_bwd_da_wgmma.launches``."""
+    if x.device.type == "cpu":
+        return psa_softmax_bmm_bwd_da_bf16_reference(x, a, g, m, l, out, norm)
+    _check_cuda(x, a)
+    _check_cuda_f32(x, g=g, m=m, l=l, out=out)
+    _check_bf16(x)
+    return _bwd_da_wgmma(x, a, g, m, l, out, norm)
+
+
+psa_softmax_bmm_bwd_da_wgmma.launches = 0
 
 
 def psa_softmax_bmm_bwd_dx(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:

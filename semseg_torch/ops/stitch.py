@@ -61,6 +61,14 @@ def _taps(in_size: int, out_size: int, device: torch.device):
     return idx.to(device), w.to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_records(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`_taps` as the kernel reads them: int32 ``[out, 4]``, one
+    16-byte record ``{lo, hi, bits of w0, bits of w1}`` per output index."""
+    idx, w = _taps(in_size, out_size, torch.device("cpu"))
+    return torch.cat([idx, w.view(torch.int32)], 1).contiguous().to(device)
+
+
 def upsample_softmax_flip_reference(logits_pairs: torch.Tensor,
                                     out_hw) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on the kernel's rounding
@@ -93,7 +101,7 @@ def _lib():
 
     lib = load_library("stitch")
     fn = lib.semseg_stitch_upsample_softmax_flip
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -121,14 +129,11 @@ def upsample_softmax_flip(logits_pairs: torch.Tensor, out_hw) -> torch.Tensor:
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     dev = logits_pairs.device
     out = torch.empty((p_n, c, out_h, out_w), dtype=torch.bfloat16, device=dev)
-    row_idx, row_w = _taps(hs, out_h, dev)
-    col_idx, col_w = _taps(ws, out_w, dev)
+    rows, cols = _tap_records(hs, out_h, dev), _tap_records(ws, out_w, dev)
     fn = _lib()
     with torch.cuda.device(dev):
-        rc = fn(logits_pairs.data_ptr(), out.data_ptr(), row_idx.data_ptr(),
-                row_w.data_ptr(), col_idx.data_ptr(), col_w.data_ptr(),
-                p_n, c, hs, ws, out_h, out_w,
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(logits_pairs.data_ptr(), out.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+                p_n, c, hs, ws, out_h, out_w, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"stitch kernel launch failed: cudaError {rc}")
     upsample_softmax_flip.launches += 1

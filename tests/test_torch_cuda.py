@@ -28,6 +28,9 @@ def cuda():
     (4, 150, 60, 473),  # ADE20K 473 crops
     (3, 5, 13, 97),
     (1, 2, 1, 1),
+    # 150 classes: five chunks, the last of 22; 97^2 pixels end in a partial
+    # 1024-pixel block; odd rows, 2-byte aligned
+    (2, 150, 13, 97),
 ])
 def test_stitch_kernel_matches_plain(cuda, p, c, hs, out):
     """max abs diff <= 2e-2 (bf16 output rounding, exp ulps, online vs
@@ -50,6 +53,18 @@ def test_stitch_kernel_non_square(cuda):
     got = stitch.upsample_softmax_flip(lp, (65, 97))
     want = stitch.upsample_softmax_flip_reference(lp, (65, 97))
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_stitch_kernel_plans_wide_rows(cuda):
+    """A source row of 700 columns: the H pass of 32 classes would not fit
+    the kernel's shared-memory budget, so it runs 4 classes a chunk (ten
+    chunks, the statistics in shared memory)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    lp = (torch.randn(1, 2, 40, 5, 700, generator=g, device=cuda) * 3).to(torch.bfloat16)
+    got = stitch.upsample_softmax_flip(lp, (33, 5593))
+    want = stitch.upsample_softmax_flip_reference(lp, (33, 5593))
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert (got.float().sum(1) - 1).abs().max().item() <= 2e-2
 
 
 def test_stitch_kernel_rejects_what_it_does_not_take(cuda):
@@ -118,6 +133,22 @@ def _dx_bars(a, g, m, l, dx32, norm):
     p = psa._probs(a, m, l)
     ulp = 2.0 ** (torch.floor(torch.log2(dx32.abs().clamp_min(1e-30))) - 7)
     return 2.0 ** -7 * torch.bmm(g.abs(), p.transpose(1, 2)) / norm + ulp
+
+
+def _da_bars(x, a, g, m, l, da32, norm):
+    """The tensor-core da's bar, element by element:
+
+        |kernel - plain| <= p 2^-8 (|x|^T |g|) / norm + ulp_bf16(|plain|).
+
+    da = p (dP - delta) with dP = x^T g / norm. x is bf16 already; the
+    kernel rounds g to bf16 once (2^-9 relative per term), so dP moves by at
+    most 2^-9 (|x|^T |g|) / norm; a factor 2 covers the order of the f32
+    sums, and p (at most 1, recomputed in f32 from the same m and l, and
+    delta, the same f32 tensor on both sides) scales it. The result is
+    returned in bf16: one ulp of |plain|."""
+    p = psa._probs(a, m, l)
+    ulp = 2.0 ** (torch.floor(torch.log2(da32.abs().clamp_min(1e-30))) - 7)
+    return p * 2.0 ** -8 * torch.bmm(x.float().abs().transpose(1, 2), g.abs()) / norm + ulp
 
 
 @pytest.mark.parametrize("n,c,hw,dtype", [
@@ -202,6 +233,38 @@ def test_wgmma_kernels_match_plain(cuda, n, c, hw):
             2.0 ** (np.floor(np.log2(mx)) - 7))
 
 
+@pytest.mark.parametrize("n,c,hw", [
+    (1, 130, 97),     # three channel stages, one ragged; one ragged tile
+    (3, 16, 200),     # one stage, two tiles each way
+    (8, 512, 2025),   # Cityscapes PSANet at batch 8
+    (16, 512, 2025),  # Cityscapes PSANet, trained at batch 16
+])
+def test_wgmma_da_matches_plain(cuda, n, c, hw):
+    """The tensor-core da on bf16 operands: element by element within
+    ``_da_bars`` of the plain f32 da, within one bf16 ulp of max|plain|
+    of its bf16 plain version (the same rounding of g, sums in another
+    order); two calls bit-identical; one launch of it through the entry
+    point and none of the SIMT da."""
+    g0 = torch.Generator(device=cuda).manual_seed(hw + 5)
+    x = torch.randn(n, c, hw, generator=g0, device=cuda).to(torch.bfloat16)
+    a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(torch.bfloat16)
+    g = torch.randn(n, c, hw, generator=g0, device=cuda)
+    with torch.no_grad():
+        out, m, l = psa.psa_softmax_bmm(x, a, 1.3, return_stats=True)
+        before = (psa.psa_softmax_bmm_bwd_da_wgmma.launches, psa.psa_softmax_bmm_bwd_da.launches)
+        da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
+        torch.cuda.synchronize()
+        assert (psa.psa_softmax_bmm_bwd_da_wgmma.launches,
+                psa.psa_softmax_bmm_bwd_da.launches) == (before[0] + 1, before[1])
+        assert da.dtype == torch.bfloat16 and da.shape == a.shape
+        da32 = psa.psa_softmax_bmm_bwd_da_reference(x.float(), a.float(), g, m, l, out, 1.3)
+        assert ((da.float() - da32).abs() <= _da_bars(x, a, g, m, l, da32, 1.3)).all()
+        da16 = psa.psa_softmax_bmm_bwd_da_bf16_reference(x, a, g, m, l, out, 1.3).float()
+        mx = da16.abs().max().item()
+        assert (da.float() - da16).abs().max().item() <= 2.0 ** (np.floor(np.log2(mx)) - 7)
+        assert torch.equal(da, psa.psa_softmax_bmm_bwd_da_wgmma(x, a, g, m, l, out, 1.3))
+
+
 def test_wgmma_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(1, 4, 9, device=cuda)
     a = torch.zeros(1, 9, 9, device=cuda)
@@ -211,13 +274,35 @@ def test_wgmma_kernels_reject_what_they_do_not_take(cuda):
         psa.psa_softmax_bmm_wgmma(x, a)  # f32 operands run the SIMT kernels
     with pytest.raises(ValueError, match="bfloat16"):
         psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m, l)
+    with pytest.raises(ValueError, match="bfloat16"):
+        psa.psa_softmax_bmm_bwd_da_wgmma(x, a, g, m, l, g)
     xb, ab = x.to(torch.bfloat16), a.to(torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         psa.psa_softmax_bmm_wgmma(xb, ab.transpose(1, 2))
     with pytest.raises(ValueError, match="float32"):
         psa.psa_softmax_bmm_bwd_dx_wgmma(xb, ab, g.to(torch.bfloat16), m, l)
+    with pytest.raises(ValueError, match="float32"):
+        psa.psa_softmax_bmm_bwd_da_wgmma(xb, ab, g, m, l, g.to(torch.bfloat16))
     assert psa.psa_softmax_bmm_wgmma(xb, ab).shape == (1, 4, 9)
     assert psa.psa_softmax_bmm_bwd_dx_wgmma(xb, ab, g, m, l).dtype == torch.bfloat16
+    assert psa.psa_softmax_bmm_bwd_da_wgmma(xb, ab, g, m, l, g).dtype == torch.bfloat16
+
+
+def test_f32_da_runs_the_simt_kernel(cuda):
+    """float32 operands keep the SIMT da: its counter moves, the
+    tensor-core one does not."""
+    g0 = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(2, 16, 70, generator=g0, device=cuda)
+    a = torch.randn(2, 70, 70, generator=g0, device=cuda) * 3
+    g = torch.randn(2, 16, 70, generator=g0, device=cuda)
+    out, m, l = psa.psa_softmax_bmm(x, a, 1.3, return_stats=True)
+    before = (psa.psa_softmax_bmm_bwd_da.launches, psa.psa_softmax_bmm_bwd_da_wgmma.launches)
+    da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
+    assert (psa.psa_softmax_bmm_bwd_da.launches,
+            psa.psa_softmax_bmm_bwd_da_wgmma.launches) == (before[0] + 1, before[1])
+    want = psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out, 1.3)
+    assert da.dtype == torch.float32
+    assert (da - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
 
 
 def test_psa_kernels_reject_what_they_do_not_take(cuda):
@@ -297,9 +382,10 @@ def _bwd_bars(dtype, dx_plain, da_plain):
 def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
     """da, dx and the flash backward against the plain backward (f32
     reference on the same operand values; bf16 grads against it rounded to
-    bf16, but bf16 dx, which runs on the tensor cores, against the f32 one
-    within ``_dx_bars``), from the kernels' own forward statistics; grads
-    in the primal dtypes; two calls bit-identical; one launch each."""
+    bf16, but bf16 da and dx, which run on the tensor cores, against the f32
+    ones within ``_da_bars`` and ``_dx_bars``), from the kernels' own
+    forward statistics; grads in the primal dtypes; two calls
+    bit-identical; one launch each."""
     g0 = torch.Generator(device=cuda).manual_seed(hw + 1)
     x = torch.randn(n, c, hw, generator=g0, device=cuda).to(dtype)
     a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(dtype)
@@ -311,9 +397,10 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
         assert torch.equal(m, m_ref) and ((l - l_ref).abs() / l_ref).max().item() <= 1e-5
         dx32, da32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, m_ref, l_ref,
                                                        fout, 1.3)
-        dx_counter = (psa.psa_softmax_bmm_bwd_dx_wgmma if dtype == torch.bfloat16
-                      else psa.psa_softmax_bmm_bwd_dx)
-        counters = (psa.psa_softmax_bmm_bwd_da, dx_counter, psa.psa_softmax_bmm_flash_bwd)
+        bf16 = dtype == torch.bfloat16
+        dx_counter = psa.psa_softmax_bmm_bwd_dx_wgmma if bf16 else psa.psa_softmax_bmm_bwd_dx
+        da_counter = psa.psa_softmax_bmm_bwd_da_wgmma if bf16 else psa.psa_softmax_bmm_bwd_da
+        counters = (da_counter, dx_counter, psa.psa_softmax_bmm_flash_bwd)
         before = tuple(f.launches for f in counters)
         da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
         dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3)
@@ -324,12 +411,15 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
         want_dx, want_da = (dx32, da32) if dtype == torch.float32 else (
             dx32.to(dtype).float(), da32.to(dtype).float())
         bar_dx, bar_da = _bwd_bars(dtype, dx32, da32)
-        if dtype == torch.bfloat16:
+        if bf16:
             assert ((dx.float() - dx32).abs() <= _dx_bars(a, g, m, l, dx32, 1.3)).all()
+            # the bar holds da to the plain da from the same forward output
+            da32 = psa.psa_softmax_bmm_bwd_da_reference(x.float(), a.float(), g, m, l, out, 1.3)
+            assert ((da.float() - da32).abs() <= _da_bars(x, a, g, m, l, da32, 1.3)).all()
         else:
             assert (dx.float() - want_dx).abs().max().item() <= bar_dx
+            assert (da.float() - want_da).abs().max().item() <= bar_da
         assert (fdx.float() - want_dx).abs().max().item() <= bar_dx
-        assert (da.float() - want_da).abs().max().item() <= bar_da
         assert (fda.float() - want_da).abs().max().item() <= bar_da
         assert torch.equal(da, psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3))
         assert torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3))
@@ -409,9 +499,9 @@ def test_entry_points_default_to_cuda(cuda):
 
 def test_psanet_train_step_on_cuda(cuda):
     """One bf16 PSANet50 train step at 97x97 crops through the Trainer:
-    per step the tensor-core forward and dx and the da kernel twice each
-    (two directions), no SIMT forward or dx, no flash and no stitch kernel;
-    finite losses; every parameter moved."""
+    per step the tensor-core forward, da and dx twice each (two
+    directions), no SIMT kernel, no flash and no stitch kernel; finite
+    losses; every parameter moved."""
     from types import SimpleNamespace
 
     from semseg_torch.engine.optim import make_sgd
@@ -429,17 +519,17 @@ def test_psanet_train_step_on_cuda(cuda):
     rs = np.random.RandomState(0)
     images = torch.from_numpy(rs.randint(0, 256, (2, 97, 97, 3)).astype(np.uint8))
     labels = torch.from_numpy(rs.randint(0, 19, (2, 97, 97)).astype(np.uint8))
-    counters = {"fwd": psa.psa_softmax_bmm_wgmma, "da": psa.psa_softmax_bmm_bwd_da,
+    counters = {"fwd": psa.psa_softmax_bmm_wgmma, "da": psa.psa_softmax_bmm_bwd_da_wgmma,
                 "dx": psa.psa_softmax_bmm_bwd_dx_wgmma, "simt_fwd": psa.psa_softmax_bmm,
-                "simt_dx": psa.psa_softmax_bmm_bwd_dx, "flash": psa.psa_softmax_bmm_flash,
-                "flash_bwd": psa.psa_softmax_bmm_flash_bwd,
+                "simt_da": psa.psa_softmax_bmm_bwd_da, "simt_dx": psa.psa_softmax_bmm_bwd_dx,
+                "flash": psa.psa_softmax_bmm_flash, "flash_bwd": psa.psa_softmax_bmm_flash_bwd,
                 "stitch": stitch.upsample_softmax_flip}
     start = {k: f.launches for k, f in counters.items()}
     metrics = tr.step(images, labels)
     torch.cuda.synchronize()
     got = {k: f.launches - start[k] for k, f in counters.items()}
-    assert got == {"fwd": 2, "da": 2, "dx": 2, "simt_fwd": 0, "simt_dx": 0, "flash": 0,
-                   "flash_bwd": 0, "stitch": 0}
+    assert got == {"fwd": 2, "da": 2, "dx": 2, "simt_fwd": 0, "simt_da": 0, "simt_dx": 0,
+                   "flash": 0, "flash_bwd": 0, "stitch": 0}
     assert np.isfinite(metrics["loss"].item()) and metrics["union"].sum().item() > 0
     for k, v in model.named_parameters():
         assert v.grad is not None and not torch.equal(v.detach(), before[k]), k

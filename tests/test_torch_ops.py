@@ -130,6 +130,17 @@ def test_stitch_taps_reproduce_weight_matrix(src, dst):
     assert torch.equal(dense, want)
 
 
+@pytest.mark.parametrize("src,dst", [(89, 705), (60, 473), (5, 1)])
+def test_stitch_tap_records_pack_the_taps(src, dst):
+    """The kernel's 16-byte tap records hold the tap tables bit for bit:
+    indices, then the float32 weights' bits."""
+    idx, w = stitch._taps(src, dst, torch.device("cpu"))
+    rec = stitch._tap_records(src, dst, torch.device("cpu"))
+    assert rec.dtype == torch.int32 and tuple(rec.shape) == (dst, 4) and rec.is_contiguous()
+    assert torch.equal(rec[:, :2], idx)
+    assert torch.equal(rec[:, 2:].contiguous().view(torch.float32), w)
+
+
 def test_stitch_wrapper_dispatch_rules():
     lp = torch.zeros(1, 2, 3, 5, 5)
     before = stitch.upsample_softmax_flip.launches

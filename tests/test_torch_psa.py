@@ -401,6 +401,52 @@ def test_tensor_core_rounding_within_bars(n, c, hw, tile_j, norm):
     np.testing.assert_allclose(dx.float().numpy(), want_dx, rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("n,c,hw,tile_j,norm", [
+    (1, 8, 97, 32, 1.5),  # ragged: hw not a multiple of the kernel's 128 tile
+    (2, 8, 70, 32, 2.0),
+    (1, 8, 100, 16, 1.5),
+])
+def test_tensor_core_da_rounding_within_bars(n, c, hw, tile_j, norm):
+    """The tensor-core da's rounding, emulated by its plain version
+    (``psa_softmax_bmm_bwd_da_bf16_reference``: g rounded to bf16, then the
+    f32 math), against the plain f32 da: within the card tests' element-wise
+    bar (``_da_bars`` in ``tests/test_torch_cuda.py``). And within the JAX
+    package's bf16 license, rtol = atol = 1e-2, of ``jax.vjp`` of the Pallas
+    resident kernel in interpret mode (DEFAULT precision for bf16 operands;
+    on the CPU it does not round g) on the same numpy-seeded inputs, at the
+    C = 8 and norm >= 1.5 where ``tests/test_psa_pallas.py`` applies it:
+    the rounding of g moves da by up to p 2^-9 (|x|^T |g|) / norm, which at
+    C = 24 and norm 1 reaches 0.03 on a few elements. On the CPU both entry
+    points run plain versions and no counter moves."""
+    from tests.test_torch_cuda import _da_bars
+
+    (jx, ja), (x, a) = _operands(hw + 6, n, c, hw, "bf16")
+    g = np.random.RandomState(hw + 7).randn(n, c, hw).astype(np.float32)
+    fwd = lambda xx, aa: jpsa.psa_softmax_bmm(xx, aa, norm, tile_j, True)  # noqa: E731
+    _, pull = jax.vjp(fwd, jx, ja)
+    want_da = np.asarray(pull(jnp.asarray(g))[1], np.float32)
+
+    gt = torch.from_numpy(g)
+    out = psa.psa_softmax_bmm_reference(x, a, norm)
+    m, l = psa.psa_softmax_stats(a)
+    counters = (psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm_bwd_da_wgmma,
+                psa.psa_softmax_bmm_bwd_dx, psa.psa_softmax_bmm_bwd_dx_wgmma)
+    before = [f.launches for f in counters]
+    da = psa.psa_softmax_bmm_bwd_da_wgmma(x, a, gt, m, l, out, norm)
+    entry = psa.psa_softmax_bmm_bwd_da(x, a, gt, m, l, out, norm)
+    assert [f.launches for f in counters] == before  # CPU: plain versions
+    assert da.dtype == entry.dtype == torch.bfloat16
+    torch.testing.assert_close(da, psa.psa_softmax_bmm_bwd_da_bf16_reference(
+        x, a, gt, m, l, out, norm), rtol=0, atol=0)
+    torch.testing.assert_close(entry, psa.psa_softmax_bmm_bwd_da_reference(
+        x, a, gt, m, l, out, norm), rtol=0, atol=0)
+
+    da32 = psa.psa_softmax_bmm_bwd_da_reference(x.float(), a.float(), gt, m, l, out, norm)
+    assert not torch.equal(da.float(), da32.to(torch.bfloat16).float())  # g is rounded
+    assert ((da.float() - da32).abs() <= _da_bars(x, a, gt, m, l, da32, norm)).all()
+    np.testing.assert_allclose(da.float().numpy(), want_da, rtol=1e-2, atol=1e-2)
+
+
 @pytest.mark.parametrize("entry", ["psa_softmax_bmm", "psa_softmax_bmm_flash"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_entry_points_are_differentiable(entry, dtype):
