@@ -2,20 +2,29 @@
 
 No profiler of kernel internals runs on the card's machine, so this builds
 variants of ``semseg_torch/csrc/psa.cu`` with one piece of the tensor-core
-kernels removed each (the wgmma products, the exps, the loads of A, the
-operand copies, forming p, the operand pack; for da the wgmma products, the
-operand copies, the packs, the loads of A, the stores of da, the whole
-epilogue or the whole channel loop) and times
-the forward, dx and da of every variant at the Cityscapes PSANet shapes
-(CUDA events over 20 back-to-back launches, the library called directly;
-da without the caller's ``delta``). The variants' results
-are wrong by design: only their times mean anything. Builds go under
-``build/psa_ablation/``.
+kernels removed each and times them at the Cityscapes PSANet shapes (CUDA
+events over 20 back-to-back launches, the library called directly). The
+variants' results are wrong by design: only their times mean anything.
+Builds go under ``build/psa_ablation/``.
+- ``--family bf16`` (the default): the bf16 forward, dx and da. Removed:
+  the wgmma products, the exps, the loads of A, the operand copies, forming
+  p, the operand pack; for da the wgmma products, the operand copies, the
+  packs, the loads of A, the stores of da, the whole epilogue or the whole
+  channel loop (da without the caller's ``delta``).
+- ``--family tf32x3``: the f32 forward and dx on the tensor cores as
+  3xTF32. Removed: all three wgmma passes, the two small-term passes (one
+  TF32 pass left), the exps, the loads of A, the operand copies, forming p
+  (and its split), the per-stage add of the products into the rounded sums
+  (with the forward's rescaling by alpha), the operand pack. And two
+  layouts: ``mt1``, 128 channels a block (four blocks a query tile at
+  C = 512) in place of 256, and ``mt1_2blocks``, the same with two blocks
+  an SM (at most 128 registers a thread).
 
 Usage, from the repository root on a machine with the card:
-    python3 chip_probes/psa_ablation.py
+    python3 chip_probes/psa_ablation.py [--family bf16|tf32x3]
 """
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -55,18 +64,45 @@ VARIANTS = {
     "da_no_gemm": [("for (int s = 0; s < stages; ++s) {\n    cp_async_wait<kDaStages - 2>();",
                     "for (int s = 0; s < 0; ++s) {\n    cp_async_wait<kDaStages - 2>();")],
 }
+TF32_VARIANTS = {
+    "base": [],
+    "no_wgmma": [("        wgmma_m64n64k8_tf32(acc[mt], al, bh, k);  // small terms first; k = 0 "
+                  "starts from 0\n        wgmma_m64n64k8_tf32(acc[mt], ah, bl, 1);\n"
+                  "        wgmma_m64n64k8_tf32(acc[mt], ah, bh, 1);\n", "")],
+    "one_pass": [("        wgmma_m64n64k8_tf32(acc[mt], al, bh, k);  // small terms first; k = 0 "
+                  "starts from 0\n        wgmma_m64n64k8_tf32(acc[mt], ah, bl, 1);\n", "")],
+    "no_exp": [("expf(raw[r] - m_new)", "(raw[r] - m_new)"),
+               ("expf(raw[r] - ml[0])", "(raw[r] - ml[0])")],
+    "no_A_loads": [("? __ldg(an + (long long)i * HW + j) : -INFINITY", "? 0.5f : -INFINITY")],
+    "no_operand": [("      cp_async16(dst, hin + src);\n      cp_async16(dst + kPA, lon + src);\n",
+                    "")],
+    "no_p": [("    if (more) produce(s + 1);\n    if (s + 2 < stages) fetch((s + 2) * kTf32K);\n",
+              "    if (s + 2 < stages) fetch((s + 2) * kTf32K);\n")],
+    "no_promote": [("          v = kDx ? v + acc[mt][4 * q + e] : fmaf(v, e % 2 ? f.y : f.x, "
+                    "acc[mt][4 * q + e]);\n", "")],
+    "mt1": [("inline int tf32_m_tiles(int c) { return c <= 128 ? 1 : 2; }",
+             "inline int tf32_m_tiles(int c) { return 1; }")],
+    "mt1_2blocks": [("inline int tf32_m_tiles(int c) { return c <= 128 ? 1 : 2; }",
+                     "inline int tf32_m_tiles(int c) { return 1; }"),
+                    ("__global__ void __launch_bounds__(kThreads, 1)\npsa_tf32x3_kernel(",
+                     "__global__ void __launch_bounds__(kThreads, 2)\npsa_tf32x3_kernel(")],
+    "no_pack": [("  psa_pack_tf32x3_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, s>>>(src, "
+                 "pack, c, hw, cp,\n                                                             "
+                 "             hwp, total4);\n", "")],
+}
+FAMILIES = {"bf16": VARIANTS, "tf32x3": TF32_VARIANTS}
 OUT = ROOT / "build" / "psa_ablation"
 
 
-def build(name):
+def build(family, name):
     text = (ROOT / "semseg_torch" / "csrc" / "psa.cu").read_text()
-    for old, new in VARIANTS[name]:
+    for old, new in FAMILIES[family][name]:
         if old not in text:
             raise RuntimeError(f"variant {name}: {old!r} is not in psa.cu")
         text = text.replace(old, new)
-    cu = OUT / f"{name}.cu"
+    cu = OUT / f"{family}_{name}.cu"
     cu.write_text(text)
-    so = OUT / f"lib{name}.so"
+    so = OUT / f"lib{family}_{name}.so"
     flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     proc = subprocess.run([_nvcc(), *flags, "-o", str(so), str(cu)], capture_output=True,
                           text=True)
@@ -88,15 +124,49 @@ def ms(fn, reps=20):
     return s.elapsed_time(e) / reps
 
 
+def time_tf32x3(libs, dev):
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for n, c, hw in [(8, 512, 2025), (16, 512, 2025)]:
+        g0 = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(n, c, hw, generator=g0, device=dev)
+        a = torch.randn(n, hw, hw, generator=g0, device=dev) * 3
+        g = torch.randn(n, c, hw, generator=g0, device=dev)
+        m, l = psa.psa_softmax_stats(a)
+        out = torch.empty(n, c, hw, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        row = []
+        for name, so in libs.items():
+            lib = ctypes.CDLL(str(so))
+            fwd, bwd = lib.semseg_psa_softmax_bmm_tf32x3, lib.semseg_psa_bwd_dx_tf32x3
+            for fn in (fwd, bwd):
+                fn.argtypes, fn.restype = [ptr] * 6 + [i32] * 3 + [f32, ptr], ctypes.c_int
+            elems = lib.semseg_psa_tf32x3_pack_elems
+            elems.argtypes, elems.restype = [i32] * 3, ctypes.c_longlong
+            pack = torch.empty(elems(n, c, hw), device=dev)
+            t_fwd = ms(lambda: fwd(x.data_ptr(), a.data_ptr(), out.data_ptr(), None, None,
+                                   pack.data_ptr(), n, c, hw, 1.0, stream))
+            t_dx = ms(lambda: bwd(a.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                  out.data_ptr(), pack.data_ptr(), n, c, hw, 1.0, stream))
+            row.append(f"{name} fwd {t_fwd:.4f} dx {t_dx:.4f}")
+        print(f"3xTF32 {(n, c, hw)} ms: " + "; ".join(row), flush=True)
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--family", choices=sorted(FAMILIES), default="bf16")
+    family = ap.parse_args().family
     if not torch.cuda.is_available():
         print("psa_ablation: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     OUT.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(pool.map(build, VARIANTS))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    names = FAMILIES[family]
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(pool.map(lambda name: build(family, name), names))
     dev = torch.device("cuda")
+    if family == "tf32x3":
+        time_tf32x3(libs, dev)
+        return 0
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for n, c, hw in [(8, 512, 2025), (16, 512, 2025)]:
         g0 = torch.Generator(device=dev).manual_seed(0)
         x = torch.randn(n, c, hw, generator=g0, device=dev).to(torch.bfloat16)

@@ -19,20 +19,25 @@ each (12 runs after 4):
 4. PSA forward kernels vs plain: the resident and the flash kernel against
    the plain softmax + bmm at (N, C, hw) = (8, 512, 900), (8, 512, 2025),
    (16, 512, 2025) and (1, 512, 7921), bf16 and f32 operands, A = randn *
-   3. f32 operands and the flash kernel: max abs diff <= 1e-4 * max|plain|
-   + 1e-5. bf16 operands run the resident forward on the tensor cores:
-   element by element within 2^-8 (|x| @ p) / norm + 1e-6 (``fwd_bars``)
-   and within rtol = atol = 1e-2; the SIMT resident kernel it replaced is
-   launched directly beside it and held to 1e-4. ``m`` exact and ``l``
-   within 1e-5 relative for every kernel; kernel, SIMT, plain times and
-   the bound;
+   3. The flash kernel: max abs diff <= 1e-4 * max|plain| + 1e-5. f32
+   operands run the resident forward on the tensor cores as 3xTF32: within
+   that bar and element by element within the JAX package's f32 bar, rtol
+   = atol = 1e-5, against a float64 plain version (``elementwise_f64``). bf16 operands run it in one bf16 pass: element by element
+   within 2^-8 (|x| @ p) / norm + 1e-6 (``fwd_bars``) and within rtol =
+   atol = 1e-2. Both tensor-core kernels give bit-identical results in two
+   calls; the SIMT resident kernel they replaced is launched directly beside
+   them and held to 1e-4. ``m`` exact and ``l`` within 1e-5 relative for
+   every kernel; kernel, SIMT, plain times and the bound;
 12. PSA backward kernels vs plain at the same extents: da, dx and the
    flash backward against the plain backward from the same statistics;
-   f32 within 1e-4 * max|plain| + 1e-5; bf16 da and dx on the tensor cores
-   element by element within p 2^-8 (|x|^T |g|) / norm and 2^-7 (|g| @
-   p^T) / norm, each plus one bf16 ulp of |plain| (``da_bars``,
-   ``dx_bars``), two calls bit-identical; the bf16 flash backward and the
-   SIMT da and dx within one bf16 ulp of max|plain| against the plain grads
+   f32 within 1e-4 * max|plain| + 1e-5, and the 3xTF32 dx element by
+   element within the JAX package's f32 VJP bar (rtol 1e-4, atol 1e-5)
+   against a float64 plain version;
+   bf16 da and dx on the tensor cores element by element within p 2^-8
+   (|x|^T |g|) / norm and 2^-7 (|g| @ p^T) / norm, each plus one bf16 ulp
+   of |plain| (``da_bars``, ``dx_bars``); the tensor-core da and dx give
+   bit-identical results in two calls; the bf16 flash backward and the SIMT
+   da and dx within one bf16 ulp of max|plain| against the plain grads
    rounded to bf16; kernel, SIMT, plain and plain-autograd times and the
    bounds;
 5. PSPNet slice: ``build_evaluator`` answers requests; each must launch the
@@ -50,7 +55,7 @@ each (12 runs after 4):
 10. PSANet shrink 1 (f32, mask 177x177, hw 7921): one 705x705 window and
    its flip launch the flash kernel exactly twice; logits within 1e-3
    relative of the plain attention;
-11. PSANet f32: one 705x705 window through the SIMT resident kernel on
+11. PSANet f32: one 705x705 window through the 3xTF32 resident kernel on
    the card against the plain version on the CPU, 1e-3 relative;
 13. PSANet50 training slice: 48 street-like 1024x2048 images with label
    PNGs, ``run`` with ``compute_dtype bfloat16``, ``batch_size 16`` (12 or
@@ -63,9 +68,12 @@ each (12 runs after 4):
    (device busy, idle share, the PSA kernels' device time, top kernels in
    ``build/chip_smoke/``);
 15. PSPNet50 bf16, 3 train steps through the same Trainer: no PSA launch;
-16. PSANet50 f32 train step, batch 2: the SIMT forward, da and dx twice
-   each, against plain attention: losses within 1e-5 relative and every
-   parameter gradient within the relative bar of ``GRAD_REL``;
+16. PSANet50 f32 train step, batch 2: the 3xTF32 forward and dx and the
+   SIMT da twice each, against plain attention: losses within 1e-5
+   relative and every parameter gradient within the relative bar of
+   ``GRAD_REL``; then the f32 step timed at batch 8 on a device-resident
+   batch (2 warm-up, 5 timed steps, the same launches per step): images/s,
+   peak memory, and the PSA kernels' share of a profiler window of 2 steps;
 17. the same at shrink 1 (hw 7921): the flash forward and flash backward
    twice each; gradients against plain attention;
 18. the PSA module at full width (2048 -> 512, 89x89 input, batch 2),
@@ -79,7 +87,9 @@ no jax and nothing of the JAX package (the port reads configs and data
 through its own ``semseg_torch.config`` and ``semseg_torch.data``); that is
 checked at the end. The line before the last is the kernels' JSON record
 (each kernel at the shape and dtype of the path it serves, with its bound
-on an H100 SXM); the last line is ``{"ok": true, "device": {"platform":
+on an H100 SXM; the SIMT resident forward and dx are off every path since
+the f32 ones run as 3xTF32, and are listed with their comparison times and
+0 launches); the last line is ``{"ok": true, "device": {"platform":
 "gpu", "kind": ..., "count": ...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root.
@@ -103,9 +113,9 @@ PSA_REL = 1e-4  # f32 sums over up to 7921 terms, in another order than cuBLAS
 N_TIMED = 8  # timed requests per slice
 PSA_EXTENTS = (("ade20k-465", 8, 512, 900), ("cityscapes-705", 8, 512, 2025),
                ("cityscapes-705-b16", 16, 512, 2025), ("shrink1-705", 1, 512, 7921))
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core
-# and f32 (outside the tensor cores) operations/s.
-PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 and TF32
+# tensor-core and f32 (outside the tensor cores) operations/s.
+PEAK_BYTES, PEAK_BF16, PEAK_TF32, PEAK_F32 = 3.35e12, 989e12, 495e12, 67e12
 # Phases 16-17: relative L2 distance of each parameter gradient, kernels
 # against plain attention (f32 sums in another order, amplified through
 # 50+ train-mode BN layers from a random init).
@@ -145,30 +155,40 @@ def cuda_ms(fn, reps=20, warmup=3):
 def kernels():
     """The launch-counting wrappers of every kernel, by name.
     ``psa_softmax_bmm``, ``psa_softmax_bmm_bwd_da`` and
-    ``psa_softmax_bmm_bwd_dx`` count the SIMT kernels (f32 operands); the
-    ``_wgmma`` ones the tensor-core kernels that the same entry points
-    launch for bf16 operands."""
+    ``psa_softmax_bmm_bwd_dx`` count the SIMT kernels (on the paths only
+    da, for f32 operands); the ``_wgmma`` ones the bf16 tensor-core kernels
+    and the ``_tf32x3`` ones the 3xTF32 kernels that the same entry points
+    launch for bf16 and f32 operands."""
     from semseg_torch.ops import psa
     from semseg_torch.ops.stitch import upsample_softmax_flip
 
     return {"upsample_softmax_flip": upsample_softmax_flip,
             "psa_softmax_bmm": psa.psa_softmax_bmm,
             "psa_softmax_bmm_wgmma": psa.psa_softmax_bmm_wgmma,
+            "psa_softmax_bmm_tf32x3": psa.psa_softmax_bmm_tf32x3,
             "psa_softmax_bmm_flash": psa.psa_softmax_bmm_flash,
             "psa_softmax_bmm_bwd_da": psa.psa_softmax_bmm_bwd_da,
             "psa_softmax_bmm_bwd_da_wgmma": psa.psa_softmax_bmm_bwd_da_wgmma,
             "psa_softmax_bmm_bwd_dx": psa.psa_softmax_bmm_bwd_dx,
             "psa_softmax_bmm_bwd_dx_wgmma": psa.psa_softmax_bmm_bwd_dx_wgmma,
+            "psa_softmax_bmm_bwd_dx_tf32x3": psa.psa_softmax_bmm_bwd_dx_tf32x3,
             "psa_softmax_bmm_flash_bwd": psa.psa_softmax_bmm_flash_bwd}
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, dtype, products=True):
     """``(ms, "bytes" or "operations")``: the least time for a function
     that moves ``nbytes`` (each input read once, each output written once)
-    and does ``flops`` operations of ``dtype`` (bf16 on the tensor cores,
-    f32 outside them), on an H100 SXM."""
+    and does ``flops`` operations of ``dtype``, on an H100 SXM. Matrix
+    products (``products``) run on the tensor cores: bf16 at the bf16 rate,
+    f32 at HIGHEST precision as 3xTF32, three TF32 passes (the cheapest
+    route within the f32 bars); other f32 operations outside them."""
     byte_ms = nbytes / PEAK_BYTES * 1e3
-    op_ms = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32) * 1e3
+    if not products:
+        op_ms = flops / PEAK_F32 * 1e3
+    elif dtype == torch.bfloat16:
+        op_ms = flops / PEAK_BF16 * 1e3
+    else:
+        op_ms = 3 * flops / PEAK_TF32 * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
@@ -219,6 +239,17 @@ def da_bars(x, a, g, m, l, da32, norm=1.0):
     p = _probs(a, m, l)
     ulp = 2.0 ** (torch.floor(torch.log2(da32.abs().clamp_min(1e-30))) - 7)
     return p * 2.0 ** -8 * torch.bmm(x.float().abs().transpose(1, 2), g.abs()) / norm + ulp
+
+
+def elementwise_f64(got, x, p, norm=1.0, rtol=1e-5, atol=1e-5):
+    """``(ratio, want64)``: the largest |got - x @ p / norm| / (atol + rtol
+    |x @ p / norm|) with the product in float64 on the card. It holds an f32
+    kernel to a JAX package's element-wise f32 bar against f32 arithmetic's
+    exact result: at hw 2025 the plain f32 version's own rounding (f32 sums
+    over hw terms) takes up to 0.64 of JAX's 1e-5 bar, and at hw 7921 more
+    than all of it (H100 80GB HBM3, ``chip_probes/psa_tf32x3_check.py``)."""
+    want64 = torch.bmm(x.double(), p.double()) / norm
+    return ((got.double() - want64).abs() / (atol + rtol * want64.abs())).max().item()
 
 
 def launches(**nonzero):
@@ -294,15 +325,16 @@ def ptxas_summary(build_log):
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             mangled = m.group(1)
-            k = re.search(r"[a-z_]+_kernel", mangled)
-            flags = (("Lb0E", "fwd"), ("Lb1E", "dx")) if "wgmma" in mangled else (
+            k = re.search(r"\d((?:psa|upsample)_[a-z0-9_]*_kernel)", mangled)
+            tc = "wgmma" in mangled or "tf32x3" in mangled
+            flags = (("Lb0E", "fwd"), ("Lb1E", "dx")) if tc else (
                 ("Lb0E", "resident"), ("Lb1E", "flash"))
             tags = [tag for pat, tag in (("13__nv_bfloat16", "bf16"), ("kernelIf", "f32"),
                                          *flags) if pat in mangled]
-            mt = re.search(r"wgmma_kernelILi(\d)E", mangled)
+            mt = re.search(r"_kernelILi(\d)E", mangled)
             if mt:
                 tags.insert(0, f"mt{mt.group(1)}")
-            cur = {"name": (k.group(0) if k else mangled) + f"<{','.join(tags)}>"}
+            cur = {"name": (k.group(1) if k else mangled) + f"<{','.join(tags)}>"}
             out.append(cur)
             continue
         if cur is None:
@@ -362,12 +394,15 @@ def phase_stitch_kernel(dev):
 
 def phase_psa_kernels(dev):
     """The PSA forward kernels against the plain version at the recipe
-    extents (phase 4). f32 operands: the SIMT resident kernel and the flash
-    kernel within ``PSA_REL``. bf16 operands: the tensor-core resident
-    kernel within ``fwd_bars``, element by element, and within the JAX
-    package's bf16 license (rtol = atol = 1e-2); the flash kernel and the
-    SIMT resident kernel it replaced (launched directly) within
-    ``PSA_REL``. ``m`` exact and ``l`` within 1e-5 relative for every
+    extents (phase 4). f32 operands: the 3xTF32 resident kernel within
+    ``PSA_REL`` and element by element within the JAX package's f32 bar
+    (rtol = atol = 1e-5) against the product in float64
+    (``elementwise_f64``; against the f32 plain version it is printed).
+    bf16 operands: the tensor-core resident kernel
+    within ``fwd_bars``, element by element, and within the JAX package's
+    bf16 license (rtol = atol = 1e-2). For both, the flash kernel and the
+    SIMT resident kernel the tensor-core ones replaced (launched directly)
+    within ``PSA_REL``; ``m`` exact and ``l`` within 1e-5 relative for every
     kernel that writes them; two tensor-core calls bit-identical."""
     from semseg_torch.ops import psa
 
@@ -383,7 +418,7 @@ def phase_psa_kernels(dev):
                 m_ref, l_ref = psa.psa_softmax_stats(a)
                 res, rm, rl = psa.psa_softmax_bmm(x, a, return_stats=True)
                 fl, m, l = psa.psa_softmax_bmm_flash(x, a, return_stats=True)
-                simt = psa._forward_simt(x, a, 1.0, False, False) if bf16 else res
+                simt = psa._forward_simt(x, a, 1.0, False, False)
                 torch.cuda.synchronize()
                 bar = PSA_REL * want.abs().max().item() + 1e-5
                 err_r = (res - want).abs().max().item()
@@ -392,32 +427,36 @@ def phase_psa_kernels(dev):
                 stats_ok = all(torch.equal(mm, m_ref) for mm in (m, rm)) and all(
                     ((ll - l_ref).abs() / l_ref).max().item() <= 1e-5 for ll in (l, rl))
                 l_rel = ((l - l_ref).abs() / l_ref).max().item()
-                if bf16:
-                    ratio = ((res - want).abs() / fwd_bars(x, a)).max().item()
-                    license_ok = torch.allclose(res, want, rtol=1e-2, atol=1e-2)
-                    same = torch.equal(res, psa.psa_softmax_bmm(x, a))
-                    res_ok = ratio <= 1.0 and license_ok and same
-                else:
-                    ratio, res_ok = err_r / bar, err_r <= bar
+                lic = 1e-2 if bf16 else 1e-5  # JAX's element-wise rtol = atol
+                elem32 = elem = ((res - want).abs() / (lic + lic * want.abs())).max().item()
+                if not bf16:
+                    elem = elementwise_f64(res, x, torch.softmax(a.double(), dim=1))
+                ratio = ((res - want).abs() / fwd_bars(x, a)).max().item() if bf16 else err_r / bar
+                same = torch.equal(res, psa.psa_softmax_bmm(x, a))
+                res_ok = ratio <= 1.0 and elem <= 1.0 and same
                 if not (res_ok and err_f <= bar and err_s <= bar and stats_ok):
                     raise AssertionError(
-                        f"psa {label} {dt}: resident err {err_r} (of its bar {ratio}), "
+                        f"psa {label} {dt}: resident err {err_r} (of its bar {ratio}, of JAX's "
+                        f"element-wise {elem}, bit-identical {same}), "
                         f"SIMT err {err_s}, flash err {err_f} (bar {bar}), stats ok {stats_ok}")
                 ms_r = cuda_ms(lambda: psa.psa_softmax_bmm(x, a))
-                ms_s = cuda_ms(lambda: psa._forward_simt(x, a, 1.0, False, False)) if bf16 else ms_r
+                ms_s = cuda_ms(lambda: psa._forward_simt(x, a, 1.0, False, False))
                 ms_f = cuda_ms(lambda: psa.psa_softmax_bmm_flash(x, a))
                 plain_ms = cuda_ms(lambda: psa.psa_softmax_bmm_reference(x, a))
             gflop = 2 * n * c * hw * hw / 1e9
             bound_ms, bound_by = psa_fwd_bound(n, c, hw, dt)
             dname = "bf16" if bf16 else "f32"
-            kind = "tensor-core" if bf16 else "SIMT"
+            kind = "tensor-core" if bf16 else "3xTF32"
             log(f"[4 psa kernels] {label} (N,C,hw)=({n},{c},{hw}) {dname}: resident ({kind}) "
-                f"err {err_r:.3e} ({ratio:.3f} of its bar) {ms_r:.4f} ms "
+                f"err {err_r:.3e} ({ratio:.3f} of its bar, {elem:.3f} of JAX's {lic:g} "
+                f"element-wise" + ("" if bf16 else f" against f64, {elem32:.3f} against the f32 "
+                                   "plain") + f") {ms_r:.4f} ms "
                 f"({gflop / ms_r:.1f} TFLOP/s; bound {bound_ms:.4f} ms by {bound_by})"
-                + (f"; SIMT resident err {err_s:.3e} {ms_s:.4f} ms" if bf16 else "")
+                f"; SIMT resident err {err_s:.3e} {ms_s:.4f} ms"
                 + f"; flash err {err_f:.3e} {ms_f:.4f} ms ({gflop / ms_f:.1f} TFLOP/s), "
                 f"m exact, l rel {l_rel:.2e} (PSA_REL bar {bar:.3e}); plain {plain_ms:.4f} ms")
             results[(label, dname)] = dict(err_r=err_r, err_f=err_f, err_s=err_s, ratio=ratio,
+                                           elem=elem,
                                            ms_r=ms_r, ms_s=ms_s, ms_f=ms_f, plain_ms=plain_ms,
                                            bound=(bound_ms, bound_by))
             del x, a, want, res, rm, rl, fl, m, l, m_ref, l_ref, simt
@@ -595,17 +634,24 @@ def phase_shrink1(dev, image):
 
 def phase_psa_backward(dev):
     """The backward kernels against the plain backward at the recipe
-    extents, from the kernels' own forward statistics (phase 12). f32: da,
-    dx (SIMT) and the flash backward within ``PSA_REL``. bf16: da and dx on
-    the tensor cores within ``da_bars`` and ``dx_bars`` against the f32
-    plain da and dx, element by element, and two calls of each
-    bit-identical; the flash backward and the SIMT da and dx they replaced
-    (launched directly) within one bf16 ulp of max|plain| against the plain
-    grads rounded to bf16. Printed beside, not a gate: the largest |err| /
-    (1e-2 + 1e-2 |plain|) of both bf16 dx kernels, the JAX package's bf16
-    license (``tests/test_psa_pallas.py``), which its tests apply at A =
-    randn and small hw; here A = randn * 3 makes |dx| larger, and the bf16
-    output's own rounding takes a share of it."""
+    extents, from the kernels' own forward statistics (phase 12). f32: da
+    (SIMT), dx (3xTF32), the SIMT dx it replaced (launched directly) and
+    the flash backward within ``PSA_REL``; the 3xTF32 dx element by element
+    within the JAX package's f32 VJP bar (rtol 1e-4, atol 1e-5) against
+    the product in float64 (``elementwise_f64``), two calls bit-identical.
+    bf16: da and dx on the tensor cores within ``da_bars`` and ``dx_bars``
+    against the f32 plain da and dx, element by element, and two calls of
+    each bit-identical; the flash backward and the SIMT da
+    and dx they replaced (launched directly) within one bf16 ulp of
+    max|plain| against the plain grads rounded to bf16. Printed beside, not
+    a gate: the largest |err| / (1e-2 + 1e-2 |plain|) of both bf16 dx
+    kernels and of the TPU kernel's own rounding on the same inputs
+    (``psa_softmax_bmm_bwd_dx_bf16_reference``: p and g rounded to bf16, f32
+    sums, a bf16 result), the JAX package's bf16 license
+    (``tests/test_psa_pallas.py``), which its tests apply at A = randn and
+    small hw; here A = randn * 3 makes |dx| larger, and the TPU's own
+    roundings exceed the license at this scale too
+    (``chip_probes/bf16_dx_license.py``)."""
     from semseg_torch.ops import psa
 
     def bf16_ulp(v):
@@ -625,7 +671,7 @@ def phase_psa_backward(dev):
                 da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out)
                 dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)
                 sda = psa._bwd_da_simt(x, a, g, m, l, out, 1.0) if bf16 else da
-                sdx = psa._bwd_dx_simt(x, a, g, m, l, 1.0) if bf16 else dx
+                sdx = psa._bwd_dx_simt(x, a, g, m, l, 1.0)
                 fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout)
                 torch.cuda.synchronize()
                 dx32, da32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, m, l, out)
@@ -635,6 +681,14 @@ def phase_psa_backward(dev):
                     bar_da = PSA_REL * da32.abs().max().item() + 1e-5
                     dx_ratio = (dx - dx32).abs().max().item() / bar_dx
                     da_ratio = (da - da32).abs().max().item() / bar_da
+                    dx_elem32 = ((dx - dx32).abs() / (1e-5 + 1e-4 * dx32.abs())).max().item()
+                    p64 = torch.exp(a.double() - m.double()[:, None]) / l.double()[:, None]
+                    dx_elem = elementwise_f64(dx, g, p64.transpose(1, 2), rtol=1e-4)
+                    del p64
+                    if not (dx_elem <= 1.0 and
+                            torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l))):
+                        raise AssertionError(f"3xTF32 dx {label}: {dx_elem} of JAX's element-wise "
+                                             f"bar, or two calls differ")
                 else:  # one bf16 ulp of max|plain|, against plain rounded to bf16
                     want_dx, want_da = dx32.to(dt).float(), da32.to(dt).float()
                     bar_dx = bf16_ulp(dx32.abs().max().item())
@@ -645,8 +699,10 @@ def phase_psa_backward(dev):
                     if not (dx_ratio <= 1.0 and da_ratio <= 1.0):
                         raise AssertionError(f"tensor-core {label}: dx at {dx_ratio}, da at "
                                              f"{da_ratio} of their bars")
+                    tpu = psa.psa_softmax_bmm_bwd_dx_bf16_reference(x, a, g, m, l)
                     lic = {k: ((v.float() - dx32).abs() / (1e-2 + 1e-2 * dx32.abs())).max().item()
-                           for k, v in (("tensor-core", dx), ("SIMT", sdx))}
+                           for k, v in (("tensor-core", dx), ("SIMT", sdx), ("TPU model", tpu))}
+                    del tpu
                     if not (torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)) and
                             torch.equal(da, psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out))):
                         raise AssertionError(f"tensor-core {label}: two calls differ")
@@ -667,7 +723,7 @@ def phase_psa_backward(dev):
                 ms_sda = (cuda_ms(lambda: psa._bwd_da_simt(x, a, g, m, l, out, 1.0)) if bf16
                           else ms_da)
                 ms_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l))
-                ms_sdx = cuda_ms(lambda: psa._bwd_dx_simt(x, a, g, m, l, 1.0)) if bf16 else ms_dx
+                ms_sdx = cuda_ms(lambda: psa._bwd_dx_simt(x, a, g, m, l, 1.0))
                 ms_f = cuda_ms(lambda: psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout))
                 plain_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out))
                 plain_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l))
@@ -680,19 +736,20 @@ def phase_psa_backward(dev):
             dname = "bf16" if bf16 else "f32"
             dx_bound, dx_by = psa_dx_bound(n, c, hw, dt)
             da_bound, da_by = psa_da_bound(n, c, hw, dt)
-            kind = "tensor-core" if bf16 else "SIMT"
             log(f"[12 psa backward] {label} (N,C,hw)=({n},{c},{hw}) {dname}: errors "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                 + f" (bars da {bar_da:.3e}, dx {bar_dx:.3e}; da at {da_ratio:.3f}, dx at "
                 f"{dx_ratio:.3f} of their bars"
                 + (f"; 1e-2 license ratio tensor-core dx {lic['tensor-core']:.3f}, SIMT dx "
-                   f"{lic['SIMT']:.3f}" if bf16 else "") + "); "
-                f"da ({kind}) {ms_da:.4f} ms ({gflop / ms_da:.1f} TFLOP/s; bound {da_bound:.4f} "
-                f"by {da_by})"
+                   f"{lic['SIMT']:.3f}, the TPU kernel's rounding {lic['TPU model']:.3f}" if bf16
+                   else f"; 3xTF32 dx at {dx_elem:.3f} of JAX's 1e-4/1e-5 element-wise against "
+                   f"f64, {dx_elem32:.3f} against the f32 plain") + "); "
+                f"da ({'tensor-core' if bf16 else 'SIMT'}) {ms_da:.4f} ms "
+                f"({gflop / ms_da:.1f} TFLOP/s; bound {da_bound:.4f} by {da_by})"
                 + (f", SIMT da {ms_sda:.4f} ms ({gflop / ms_sda:.1f})" if bf16 else "")
-                + f", dx ({kind}) {ms_dx:.4f} ms ({gflop / ms_dx:.1f}; "
-                f"bound {dx_bound:.4f} by {dx_by})"
-                + (f", SIMT dx {ms_sdx:.4f} ms ({gflop / ms_sdx:.1f})" if bf16 else "")
+                + f", dx ({'tensor-core' if bf16 else '3xTF32'}) {ms_dx:.4f} ms "
+                f"({gflop / ms_dx:.1f}; bound {dx_bound:.4f} by {dx_by})"
+                + f", SIMT dx {ms_sdx:.4f} ms ({gflop / ms_sdx:.1f})"
                 + f", flash bwd {ms_f:.4f} ms ({2 * gflop / ms_f:.1f}); plain da {plain_da:.4f}, "
                 f"dx {plain_dx:.4f}, da+dx {plain_da + plain_dx:.4f} ms; autograd of the plain "
                 f"forward {autograd_ms:.4f} ms")
@@ -742,10 +799,11 @@ def train_cfg(root, batch_size):
 
 
 # Per train step, two directions: bf16 runs the tensor-core forward, da and
-# dx, f32 the SIMT ones.
+# dx, f32 the 3xTF32 forward and dx and the SIMT da.
 TRAIN_STEP = dict(psa_softmax_bmm_wgmma=2, psa_softmax_bmm_bwd_da_wgmma=2,
                   psa_softmax_bmm_bwd_dx_wgmma=2)
-F32_TRAIN_STEP = dict(psa_softmax_bmm=2, psa_softmax_bmm_bwd_da=2, psa_softmax_bmm_bwd_dx=2)
+F32_TRAIN_STEP = dict(psa_softmax_bmm_tf32x3=2, psa_softmax_bmm_bwd_da=2,
+                      psa_softmax_bmm_bwd_dx_tf32x3=2)
 
 
 def phase_train_slice(dev):
@@ -995,6 +1053,66 @@ def phase_grad_vs_plain(tag, dev, shrink, per_step):
     return counts
 
 
+def phase_f32_train_timing(dev, batch=8, per_step=F32_TRAIN_STEP,
+                           profile_path=OUT_DIR / "f32_train_profile.txt"):
+    """PSANet50 f32 (the recipe's default ``compute_dtype``) train step at
+    ``batch``, 705x705 crops, on a device-resident batch (phase 16): 2
+    warm-up and 5 timed steps (host clock, synchronised), each launching
+    ``per_step`` (not counted when None, for a tree whose kernels have other
+    names); images/s, peak memory; a profiler window of 2 steps with the PSA
+    kernels' share of the device time."""
+    from semseg_torch.engine.optim import make_sgd
+    from semseg_torch.engine.trainer import Trainer
+    from semseg_torch.models.build import build_model
+    from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
+
+    model = build_model(psanet_cfg(), dtype=torch.float32, device=dev, seed=0, train=True)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for a float32 model")
+    tr = Trainer(model, make_sgd(model, 0.01), classes=19, ignore_label=255, aux_weight=0.4,
+                 base_lr=0.01, max_iter=100, power=0.9, zoom_factor=8,
+                 normalize=(IMAGENET_MEAN, IMAGENET_STD))
+    pairs = [street_sample(20 + s) for s in range(batch)]
+    images = torch.from_numpy(np.stack([p[0][:705, :705] for p in pairs])).to(dev)
+    labels = torch.from_numpy(np.stack([p[1][:705, :705] for p in pairs])).to(dev)
+    for _ in range(2):
+        tr.step(images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(5):
+        if per_step is not None:
+            reset_counts()
+        losses.append(tr.step(images, labels)["loss"])
+        if per_step is not None:
+            check_counts(f"f32 timed step {i}", read_counts(), launches(**per_step))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [v.item() for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"f32 timed steps: losses {losses}")
+
+    def two_steps():
+        for _ in range(2):
+            tr.step(images, labels)
+
+    busy, span, idle, _, psa_rows = device_profile(two_steps, profile_path)
+    psa_ms = sum(ms for ms, _ in psa_rows.values())
+    log(f"[16 f32 train step] PSANet50 f32 batch {batch} 705x705 on a device-resident batch: "
+        f"{step_s:.4f} s/step = {batch / step_s:.3f} images/s, peak {peak:.2f} GiB, losses "
+        f"{[round(v, 4) for v in losses]}; profile of 2 steps: device busy {busy:.2f} ms of "
+        f"{span:.2f} ms, idle share {idle:.4f}; PSA kernels {psa_ms:.3f} ms "
+        f"({psa_ms / busy:.4f} of device time): " + ", ".join(
+            f"{k} {ms:.3f} ms / {cnt} launches = {ms / max(cnt, 1):.4f} ms each"
+            for k, (ms, cnt) in sorted(psa_rows.items())))
+    del tr, model, images, labels
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, images_per_s=batch / step_s, peak_gib=peak, idle=idle,
+                psa_share=psa_ms / busy)
+
+
 def phase_psa_module_f32(dev):
     """The PSA module at full width, f32, on the card against the CPU
     (phase 18): output and input gradient within 1e-3 relative, each
@@ -1085,7 +1203,8 @@ def main():
         upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4))
     phase_psa_vs_plain(ev, images[0])
     shrink1_counts = phase_shrink1(dev, images[2])
-    phase_f32(11, "PSANet50", psanet_cfg(), dev, ev, images[1], launches(psa_softmax_bmm=2))
+    phase_f32(11, "PSANet50", psanet_cfg(), dev, ev, images[1],
+              launches(psa_softmax_bmm_tf32x3=2))
     del ev
     torch.cuda.empty_cache()
 
@@ -1095,6 +1214,7 @@ def main():
     torch.cuda.empty_cache()
     psp_train_counts = phase_pspnet_train(dev)
     f32_counts = phase_grad_vs_plain(16, dev, 2, F32_TRAIN_STEP)
+    f32_timing = phase_f32_train_timing(dev)
     shrink1_train_counts = phase_grad_vs_plain(
         17, dev, 1, dict(psa_softmax_bmm_flash=2, psa_softmax_bmm_flash_bwd=2))
     phase_psa_module_f32(dev)
@@ -1104,7 +1224,8 @@ def main():
     if loaded:
         raise AssertionError(f"jax or JAX-package modules were imported: {loaded}")
     log(f"[summary] no jax and no semseg_tpu module loaded; "
-        f"train {batch}: {timing['images_per_s']:.3f} images/s, {timing['peak_gib']:.2f} GiB"
+        f"train {batch}: {timing['images_per_s']:.3f} images/s, {timing['peak_gib']:.2f} GiB; "
+        f"f32 train 8: {f32_timing['images_per_s']:.3f} images/s, {f32_timing['peak_gib']:.2f} GiB"
         + (f"; {'; '.join(notes)}" if notes else ""))
 
     by_path = {"pspnet_slice": psp_counts, "psanet_slice": psa_counts,
@@ -1122,10 +1243,13 @@ def main():
     # per output about 20 f32 operations (two bilinear taps of 3 lerps, exp,
     # sums, the flip average).
     stitch_bound = bound(4 * 2 * 19 * 89 * 89 * 2 + 4 * 19 * 705 * 705 * 2,
-                         20 * 4 * 19 * 705 * 705, torch.float32)
+                         20 * 4 * 19 * 705 * 705, torch.float32, products=False)
     f32 = torch.float32
     # (name, source, TPU kernel, launches on the path it serves, error, ms,
-    # plain ms, bound): each at the shape and dtype of its main path.
+    # plain ms, bound): each at the shape and dtype of its main path. The
+    # SIMT resident forward and dx serve no path since the f32 ones run as
+    # 3xTF32: their rows are the comparison launches of phases 4 and 12, at
+    # the f32 path's shape, with the f32 train step's (zero) launches.
     records = [
         ("upsample_softmax_flip", "semseg_torch/csrc/stitch.cu",
          "semseg_tpu/ops/stitch_pallas.py:131", psa_counts, city["max_abs_err"],
@@ -1133,8 +1257,11 @@ def main():
         ("psa_softmax_bmm_wgmma", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:48", psa_counts, fwd16["err_r"], fwd16["ms_r"],
          fwd16["plain_ms"], fwd16["bound"]),
-        ("psa_softmax_bmm", "semseg_torch/csrc/psa.cu",
+        ("psa_softmax_bmm_tf32x3", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:48", f32_counts, fwd32["err_r"], fwd32["ms_r"],
+         fwd32["plain_ms"], fwd32["bound"]),
+        ("psa_softmax_bmm", "semseg_torch/csrc/psa.cu",
+         "semseg_tpu/ops/psa_pallas.py:48", f32_counts, fwd32["err_s"], fwd32["ms_s"],
          fwd32["plain_ms"], fwd32["bound"]),
         ("psa_softmax_bmm_flash", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:303", shrink1_counts, flash["err_f"],
@@ -1148,16 +1275,23 @@ def main():
         ("psa_softmax_bmm_bwd_dx_wgmma", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:140", train_counts, bwd16["errs"]["dx"],
          bwd16["ms_dx"], bwd16["plain_dx"], bwd16["dx_bound"]),
-        ("psa_softmax_bmm_bwd_dx", "semseg_torch/csrc/psa.cu",
+        ("psa_softmax_bmm_bwd_dx_tf32x3", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:140", f32_counts, bwd32["errs"]["dx"],
          bwd32["ms_dx"], bwd32["plain_dx"], bwd32["dx_bound"]),
+        ("psa_softmax_bmm_bwd_dx", "semseg_torch/csrc/psa.cu",
+         "semseg_tpu/ops/psa_pallas.py:140", f32_counts, bwd32["errs"]["simt_dx"],
+         bwd32["ms_sdx"], bwd32["plain_dx"], bwd32["dx_bound"]),
         ("psa_softmax_bmm_flash_bwd", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:383", shrink1_train_counts,
          max(fbwd["errs"]["flash_da"], fbwd["errs"]["flash_dx"]), fbwd["ms_f"],
          fbwd["plain_da"] + fbwd["plain_dx"],
          bound(2 * 7921 ** 2 * 4 + 4 * 512 * 7921 * 4, 4 * 512 * 7921 ** 2, f32)),
     ]
-    missing = [k for k, *_, counts, _e, _m, _p, _b in records if counts[k] == 0]
+    off_path = ("psa_softmax_bmm", "psa_softmax_bmm_bwd_dx")
+    if any(c[k] for k in off_path for c in by_path.values()):
+        raise AssertionError(f"the SIMT resident forward or dx ran on a path: {by_path}")
+    missing = [k for k, *_, counts, _e, _m, _p, _b in records
+               if counts[k] == 0 and k not in off_path]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
     # No single PyTorch call computes any of these functions (each fuses a

@@ -7,11 +7,12 @@
 // x is [N, C, HW], A is [N, HW, HW] (both bf16 or both f32), out is f32
 // [N, C, HW]. The operand dtype picks the precision, as the TPU kernels'
 // _precision_for does (psa_pallas.py:75-81): the SIMT kernels below do all
-// math in f32 on the CUDA cores (plain FMAs) and serve f32 operands (the
-// resident forward, da and dx) or both dtypes (the flash kernels); for
-// bf16 operands the resident forward, da and dx run on the tensor cores with
-// p (forward, dx) or g (da, dx) rounded to bf16 (psa_wgmma_kernel and
-// psa_da_wgmma_kernel, in the second part of this file).
+// math in f32 on the CUDA cores (plain FMAs) and serve f32 operands (da) or
+// both dtypes (the flash kernels); for bf16 operands the resident forward,
+// da and dx run on the tensor cores with p (forward, dx) or g (da, dx)
+// rounded to bf16 (psa_wgmma_kernel and psa_da_wgmma_kernel, in the second
+// part of this file); for f32 operands the resident forward and dx run on
+// the tensor cores as 3xTF32 (psa_tf32x3_kernel, the third part).
 //
 // Replaces (semseg_tpu/ops/psa_pallas.py):
 // - semseg_psa_softmax_bmm (resident forward) -> _fwd_kernel (:48): an
@@ -71,11 +72,12 @@
 //   atomics and no C-sized shared memory (any C works).
 // The exps cost HW * HW * ceil(C / 128) per forward launch (x2 for resident)
 // and HW * HW per backward launch, about 1 % of the FMAs at C = 512. Double
-// buffering and wider register tiles are left for later work. The resident
-// forward, da and dx kernels of this part serve f32 operands only (the SIMT
-// da and dx stay reachable on bf16 operands, for comparison only); the
-// wrappers send bf16 ones to the tensor-core kernels (second part of this
-// file).
+// buffering and wider register tiles are left for later work. Of the
+// resident kernels of this part only da serves f32 operands on the path;
+// the wrappers send the resident forward and dx to the tensor-core kernels
+// for both dtypes (bf16: second part of this file; f32 as 3xTF32: third
+// part). The SIMT resident forward, da and dx stay reachable on either
+// dtype, for comparison only.
 //
 // Interface: plain C, bound from Python with ctypes. Every launch goes on
 // the caller's stream, does not synchronise and allocates nothing; the
@@ -533,7 +535,8 @@ psa_flash_bwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
 // - _fwd_kernel (psa_pallas.py:48, pallas_call :95): psa_wgmma_kernel<kMT, false>;
 // - _bwd_dx_kernel (psa_pallas.py:140, pallas_call :197): psa_wgmma_kernel<kMT, true>;
 // - _bwd_da_kernel (psa_pallas.py:125, pallas_call :184): psa_da_wgmma_kernel.
-// f32 operands keep the SIMT kernels above. This is the TPU kernels' own
+// f32 operands run the 3xTF32 kernels (forward, dx; third part) and the
+// SIMT da above. This is the TPU kernels' own
 // rule (_precision_for, psa_pallas.py:75-81): f32 operands run at HIGHEST
 // precision; bf16 operands at DEFAULT, one bf16 MXU pass, so p (and g for
 // dx) is rounded to bf16 and the sums are f32. Here that product runs on
@@ -1226,6 +1229,397 @@ int dispatch(const T* src, const void* a, const float* m_in, const float* l_in, 
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 operands: the resident forward and dx on the tensor cores as 3xTF32.
+//
+// They replace, for f32 operands, the same TPU kernels as psa_wgmma_kernel
+// (_fwd_kernel, psa_pallas.py:48, and _bwd_dx_kernel, :140), whose f32
+// contract is HIGHEST precision. Each f32 operand v is split into a TF32
+// high part hi = rna(v) and a TF32 remainder lo = rna(v - hi) (hi + lo is v
+// within 2^-22 |v|), and each product runs as lo*hi + hi*lo + hi*hi into
+// f32 accumulators (wgmma m64n64k8 .tf32; the dropped lo*lo term is 2^-22
+// relative). CUTLASS's 3xTF32 GEMMs do the same. One TF32 pass would
+// be 2^-11 relative, far outside the 1e-5 bars.
+//
+// Bound on an H100 SXM at (8, 512, 2025): three passes of 33.6 GFLOP at 495
+// TFLOP/s dense TF32, 0.204 ms; the bytes (A 131 MB of f32, x or g 33 MB,
+// the f32 output 33 MB) take 0.059 ms. So operations bound it, three times
+// over the bf16 kernel's work at half its rate.
+//
+// Design: psa_wgmma_kernel's skeleton (a block owns 64 output columns, the
+// online-softmax forward, dx from the forward's m and l, the epilogue
+// through shared memory), with both operands K-major in shared memory, as
+// TF32 wgmma requires (it has no transpose bits): x's and g's rows run
+// along K already, and p is formed in registers and stored K-major. What
+// differs is the bytes: hi and lo of both operands, 4 bytes each, so a
+// stage of 128 kMT channel rows holds a quarter of the bf16 kernel's depth
+// in the same room.
+// - Stages of K = 32: one 128-byte-swizzled row of f32, so swz and
+//   desc_sw128 above hold unchanged and a K step of 8 adds 32 bytes. Up to
+//   256 channels a block (kMT <= 2): a stage is 80 KB (A hi and lo 32 KB
+//   each, p hi and lo 8 KB each), double-buffered in 160 KB; at C = 512 two
+//   blocks share a query tile, each forming its p.
+// - Accumulation: the tensor cores add each k8 product into the f32
+//   accumulators without rounding to nearest (measured on an H100: with
+//   768 such adds over K = 2048 in one accumulator, the sums drifted by
+//   2.6 times JAX's element-wise 1e-4 / 1e-5 bar). So each stage's products
+//   start from zero in `acc` (12 adds) and are then added to `sum` on the
+//   CUDA cores, rounded to nearest; the forward's online-softmax rescaling
+//   by alpha goes into that add. Two register tiles of 64 x 64 kMT: at
+//   kMT = 4 (all 512 channels in a block) they would not fit.
+// - Operand pack: psa_pack_tf32x3_kernel writes hi and lo of x (forward) or
+//   g (dx) as f32 bit patterns into [2][N, Cp, HWp], zero-padded to whole
+//   tiles: at hw 2025 an f32 row is 8100 bytes long, so rows are not 16-byte
+//   aligned for cp.async. At N = 8 it reads 33 MB and writes 67 MB.
+// - p is exp(a - m) for the running column max (forward; l divides at the
+//   end) or exp(a - m) / l (dx), with expf, split in registers and stored as
+//   hi and lo: a thread's stores are two 16-byte chunks of one row
+//   (forward) or 4-byte words along a row (dx), conflict-free.
+// No atomics: two calls give bit-identical results.
+
+constexpr int kTf32K = 32;                        // K depth of a stage: one 128-byte row
+constexpr int kTf32PartB = kTile * kRow;          // p's hi or lo in a stage, 8 KB
+__host__ __device__ constexpr int tf32_part_a(int mt) { return 128 * mt * kRow; }
+__host__ __device__ constexpr int tf32_stage(int mt) {
+  return 2 * tf32_part_a(mt) + 2 * kTf32PartB;
+}
+__host__ __device__ constexpr int tf32_smem_bytes(int mt) {
+  return 1024 + 2 * tf32_stage(mt) + (int)sizeof(Online);
+}
+static_assert(2 * 128 * kOutStride * 4 <= 2 * tf32_stage(2),
+              "the epilogue staging fits in the operand stages");
+static_assert(tf32_smem_bytes(2) <= 232448, "fits in the shared memory of a block");
+
+// M tiles of 64 channels per warpgroup for f32 operands.
+inline int tf32_m_tiles(int c) { return c <= 128 ? 1 : 2; }
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = hi + lo + O(2^-22 |v|), both TF32 bit patterns.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// d[64 x 64] = (acc ? d : 0) + A[64 x 8] B[8 x 64], TF32 operands K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t da, uint64_t db,
+                                                    int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// src f32 [N, C, HW] -> dst [2][N, Cp, HWp]: the TF32 high parts, then the
+// remainders, as f32 bit patterns, zero outside C x HW. One thread per 4
+// outputs of each part (16 bytes).
+__global__ void psa_pack_tf32x3_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                       int C, int HW, int Cp, int HWp, long long total4) {
+  const long long id = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (id >= total4) return;
+  const int k4 = (int)(id % (HWp / 4));
+  const long long row = id / (HWp / 4);
+  const int c = (int)(row % Cp);
+  const long long n = row / Cp;
+  const float* s = src + (n * C + c) * (long long)HW;
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = k4 * 4 + e;
+    split_tf32((c < C && i < HW) ? __ldg(s + i) : 0.f, hi[e], lo[e]);
+  }
+  *reinterpret_cast<uint4*>(dst + id * 4) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(dst + (total4 + id) * 4) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// Both 3xTF32 kernels, as psa_wgmma_kernel: kDx = false the resident
+// forward (tile of 64 query columns, K over source rows, operand packed x,
+// m_out and l_out written when not null); kDx = true dx (tile of 64 source
+// rows, K over query columns, operand packed g, m_in and l_in the
+// forward's). out is f32 for both. Grid (ceil(HW / 64), Cp / (128 kMT), N),
+// 256 threads, tf32_smem_bytes(kMT) of dynamic shared memory. Stage buffer
+// layout: A hi, A lo (128 kMT rows each), B hi, B lo (64 rows each).
+template <int kMT, bool kDx>
+__global__ void __launch_bounds__(kThreads, 1)
+psa_tf32x3_kernel(const float* __restrict__ op, const float* __restrict__ a,
+                  const float* __restrict__ m_in, const float* __restrict__ l_in,
+                  float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                  int C, int HW, int Cp, int HWp, float inv_norm) {
+  constexpr int kPA = tf32_part_a(kMT), kSt = tf32_stage(kMT);
+  constexpr int kV = kTf32K * kTile / kThreads;  // B values a thread forms per stage (8)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = smem_addr(smem);
+  Online& on = *reinterpret_cast<Online*>(smem + 2 * kSt);
+
+  const int t0 = blockIdx.x * kTile;
+  const int c0 = blockIdx.y * 128 * kMT;
+  const long long n = blockIdx.z;
+  const float* an = a + n * HW * HW;
+  const float* hin = op + (n * Cp + c0) * (long long)HWp;
+  const float* lon = hin + (long long)gridDim.z * Cp * HWp;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+
+  // Each thread's part of the B operand. Forward: column jj, source rows
+  // 8 ig .. 8 ig + 7 of the stage. dx: query column jp of the stage, source
+  // rows ir + 8 r.
+  const int jj = tid % kTile, ig = tid / kTile;
+  const int jp = tid % kTf32K, ir = tid / kTf32K;
+  const bool jin = t0 + jj < HW;
+  float m_run = -INFINITY, l_run = 0.f;
+  float raw[kV];
+  float ml[2];  // dx: m and l of the thread's column
+
+  auto load_operand = [&](int buf, int k0) {
+#pragma unroll
+    for (int u = 0; u < 4 * kMT; ++u) {
+      const int id = tid + kThreads * u;
+      const int r = id / 8, ch = id % 8;
+      const long long src = (long long)r * HWp + k0 + ch * 4;
+      const uint32_t dst = s0 + buf * kSt + swz(r, ch);
+      cp_async16(dst, hin + src);
+      cp_async16(dst + kPA, lon + src);
+    }
+    cp_async_commit();
+  };
+  auto fetch = [&](int k0) {
+    if (!kDx) {
+      const int j = t0 + jj;
+#pragma unroll
+      for (int r = 0; r < kV; ++r) {
+        const int i = k0 + kV * ig + r;
+        raw[r] = (jin && i < HW) ? __ldg(an + (long long)i * HW + j) : -INFINITY;
+      }
+    } else {
+      const int j = k0 + jp;
+#pragma unroll
+      for (int r = 0; r < kV; ++r) {
+        const int i = t0 + ir + 8 * r;
+        raw[r] = (i < HW && j < HW) ? __ldg(an + (long long)i * HW + j) : -INFINITY;
+      }
+      ml[0] = j < HW ? __ldg(m_in + n * HW + j) : 0.f;
+      ml[1] = j < HW ? __ldg(l_in + n * HW + j) : 1.f;
+    }
+  };
+  // Stage s's B operand, hi and lo, into buffer s & 1 (see psa_wgmma_kernel
+  // for the forward's online softmax).
+  auto produce = [&](int s) {
+    unsigned char* bh = smem + (s & 1) * kSt + 2 * kPA;
+    unsigned char* bl = bh + kTf32PartB;
+    if (!kDx) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < kV; ++r) tmax = fmaxf(tmax, raw[r]);
+      on.red[ig][jj] = tmax;
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < kThreads / kTile; ++g) tmax = fmaxf(tmax, on.red[g][jj]);
+      const float m_new = jin ? fmaxf(m_run, tmax) : 0.f;
+      const float alpha = jin ? expf(m_run - m_new) : 1.f;  // 0 on stage 0
+      m_run = m_new;
+      float sum = 0.f;
+      uint32_t h[kV], w[kV];
+#pragma unroll
+      for (int r = 0; r < kV; ++r) {
+        const float e = expf(raw[r] - m_new);
+        sum += e;
+        split_tf32(e, h[r], w[r]);
+      }
+      l_run = l_run * alpha + sum;
+      if (ig == 0) on.alpha[s & 1][jj] = alpha;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint32_t off = swz(jj, 2 * ig + q);
+        *reinterpret_cast<uint4*>(bh + off) =
+            make_uint4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+        *reinterpret_cast<uint4*>(bl + off) =
+            make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+      }
+    } else {
+      const float rl = 1.f / ml[1];
+#pragma unroll
+      for (int r = 0; r < kV; ++r) {
+        uint32_t h, w;
+        split_tf32(expf(raw[r] - ml[0]) * rl, h, w);
+        const uint32_t off = swz(ir + 8 * r, jp / 4) + (jp % 4) * 4;
+        *reinterpret_cast<uint32_t*>(bh + off) = h;
+        *reinterpret_cast<uint32_t*>(bl + off) = w;
+      }
+    }
+  };
+
+  // acc: a stage's products on the tensor cores; sum: all stages so far.
+  float acc[kMT][32], sum[kMT][32];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[mt][e] = sum[mt][e] = 0.f;
+  }
+
+  const int stages = HWp / kTf32K;
+  load_operand(0, 0);
+  fetch(0);
+  produce(0);
+  if (stages > 1) fetch(kTf32K);
+  for (int s = 0; s < stages; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < stages;
+    if (more) {
+      load_operand(cur ^ 1, (s + 1) * kTf32K);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    wgmma_fence();
+    const uint32_t sa = s0 + cur * kSt;
+#pragma unroll
+    for (int k = 0; k < kTf32K / 8; ++k) {
+      const uint64_t bh = desc_sw128(sa + 2 * kPA + k * 32);
+      const uint64_t bl = desc_sw128(sa + 2 * kPA + kTf32PartB + k * 32);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const uint32_t am = sa + (wg * kMT + mt) * 64 * kRow + k * 32;
+        const uint64_t ah = desc_sw128(am), al = desc_sw128(am + kPA);
+        wgmma_m64n64k8_tf32(acc[mt], al, bh, k);  // small terms first; k = 0 starts from 0
+        wgmma_m64n64k8_tf32(acc[mt], ah, bl, 1);
+        wgmma_m64n64k8_tf32(acc[mt], ah, bh, 1);
+      }
+    }
+    wgmma_commit();
+    if (more) produce(s + 1);
+    if (s + 2 < stages) fetch((s + 2) * kTf32K);
+    wgmma_wait_all();
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) fence_regs(acc[mt]);
+    // sum = sum * alpha + acc, the thread's 16 columns (forward; alpha = 1
+    // for dx), rounded to nearest.
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float2 f = kDx ? make_float2(1.f, 1.f)
+                           : *reinterpret_cast<const float2*>(&on.alpha[cur][8 * q + 2 * (lane % 4)]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& v = sum[mt][4 * q + e];
+          v = kDx ? v + acc[mt][4 * q + e] : fmaf(v, e % 2 ? f.y : f.x, acc[mt][4 * q + e]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!kDx) {  // the column sums; out = sum / (l norm)
+    on.red[ig][jj] = l_run;
+    __syncthreads();
+    if (tid < kTile) {
+      float l = 0.f;
+#pragma unroll
+      for (int g = 0; g < kThreads / kTile; ++g) l += on.red[g][tid];
+      on.scale[tid] = jin ? inv_norm / l : 0.f;
+      if (m_out != nullptr && blockIdx.y == 0 && jin) {
+        m_out[n * HW + t0 + tid] = m_run;
+        l_out[n * HW + t0 + tid] = l;
+      }
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: sum times the column factor -> shared [128 kMT rows]
+  // [kOutStride] -> out rows, coalesced.
+  float* so = reinterpret_cast<float*>(smem);
+  {
+    const int warp = (tid % 128) / 32;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = 8 * q + 2 * (lane % 4);
+      const float2 f = kDx ? make_float2(inv_norm, inv_norm)
+                           : *reinterpret_cast<const float2*>(&on.scale[col]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = (wg * kMT + mt) * 64 + warp * 16 + lane / 4 + 8 * h;
+          *reinterpret_cast<float2*>(so + row * kOutStride + col) =
+              make_float2(sum[mt][4 * q + 2 * h] * f.x, sum[mt][4 * q + 2 * h + 1] * f.y);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int row = tid / 32; row < 128 * kMT && c0 + row < C; row += kThreads / 32) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = lane + 32 * h;
+      if (t0 + col < HW) out[(n * C + c0 + row) * (long long)HW + t0 + col] = so[row * kOutStride + col];
+    }
+  }
+}
+
+// Floats of the 3xTF32 operand pack for (n, c, hw): [2][N, Cp, HWp].
+inline long long tf32_pack_elems(int n, int c, int hw) {
+  const int rows = 128 * tf32_m_tiles(c);
+  return 2LL * n * ((c + rows - 1) / rows * rows) * ((hw + kTile - 1) / kTile * kTile);
+}
+
+template <int kMT, bool kDx>
+int launch_tf32x3(const float* src, const float* a, const float* m_in, const float* l_in,
+                  float* out, float* m_out, float* l_out, float* pack, int n, int c, int hw,
+                  float inv_norm, cudaStream_t s) {
+  const int rows = 128 * kMT;
+  const int cp = (c + rows - 1) / rows * rows;
+  const int hwp = (hw + kTile - 1) / kTile * kTile;
+  const long long total4 = (long long)n * cp * hwp / 4;
+  psa_pack_tf32x3_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, s>>>(src, pack, c, hw, cp,
+                                                                          hwp, total4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int bytes = tf32_smem_bytes(kMT);
+  err = cudaFuncSetAttribute(psa_tf32x3_kernel<kMT, kDx>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((hw + kTile - 1) / kTile, cp / rows, n);
+  psa_tf32x3_kernel<kMT, kDx><<<grid, kThreads, bytes, s>>>(pack, a, m_in, l_in, out, m_out,
+                                                            l_out, c, hw, cp, hwp, inv_norm);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDx>
+int dispatch_tf32x3(const float* src, const float* a, const float* m_in, const float* l_in,
+                    float* out, float* m_out, float* l_out, float* pack, int n, int c, int hw,
+                    float inv_norm, void* stream) {
+  if (n == 0 || c == 0 || hw == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (tf32_m_tiles(c)) {
+    case 1:
+      return launch_tf32x3<1, kDx>(src, a, m_in, l_in, out, m_out, l_out, pack, n, c, hw,
+                                   inv_norm, s);
+    default:
+      return launch_tf32x3<2, kDx>(src, a, m_in, l_in, out, m_out, l_out, pack, n, c, hw,
+                                   inv_norm, s);
+  }
+}
+
 }  // namespace tc
 
 template <bool kFlash>
@@ -1358,4 +1752,25 @@ extern "C" int semseg_psa_bwd_dx_wgmma(const void* a, const void* g, const void*
                                        int hw, float inv_norm, void* stream) {
   return tc::dispatch<true>((const float*)g, a, (const float*)m, (const float*)l, dx,
                             nullptr, nullptr, gpack, n, c, hw, inv_norm, stream);
+}
+
+// Floats of the 3xTF32 kernels' operand pack (hi and lo of x or g).
+extern "C" long long semseg_psa_tf32x3_pack_elems(int n, int c, int hw) {
+  return tc::tf32_pack_elems(n, c, hw);
+}
+
+extern "C" int semseg_psa_softmax_bmm_tf32x3(const void* x, const void* a, void* out, void* m,
+                                             void* l, void* xpack, int n, int c, int hw,
+                                             float inv_norm, void* stream) {
+  return tc::dispatch_tf32x3<false>((const float*)x, (const float*)a, nullptr, nullptr,
+                                    (float*)out, (float*)m, (float*)l, (float*)xpack, n, c, hw,
+                                    inv_norm, stream);
+}
+
+extern "C" int semseg_psa_bwd_dx_tf32x3(const void* a, const void* g, const void* m,
+                                        const void* l, void* dx, void* gpack, int n, int c,
+                                        int hw, float inv_norm, void* stream) {
+  return tc::dispatch_tf32x3<true>((const float*)g, (const float*)a, (const float*)m,
+                                   (const float*)l, (float*)dx, nullptr, nullptr,
+                                   (float*)gpack, n, c, hw, inv_norm, stream);
 }

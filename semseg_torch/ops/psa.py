@@ -9,31 +9,35 @@ the softmax(dim=1) + bmm hot spot of the PSA module (reference
 attention to device memory. ``x`` is ``[N, C, HW]`` and ``A`` is
 ``[N, HW, HW]``, both bfloat16 or both float32; the output is float32
 ``[N, C, HW]``. The operand dtype picks the precision, as the JAX kernels'
-``_precision_for`` does: float32 operands run all math in float32 (HIGHEST);
-bfloat16 operands may run the product at DEFAULT precision, one bf16 pass
-with ``p`` (and ``g`` in the backward) rounded to bfloat16 and float32 sums.
+``_precision_for`` does: float32 operands run at HIGHEST precision, float32
+products to within the 1e-5 bars (as 3xTF32 on the tensor cores, or as
+float32 FMAs on the CUDA cores); bfloat16 operands may run the product at
+DEFAULT precision, one bf16 pass with ``p`` (and ``g`` in the backward)
+rounded to bfloat16 and float32 sums.
 
-Eight kernels in ``csrc/psa.cu``. Forward, picked by
+Ten kernels in ``csrc/psa.cu``. Forward, picked by
 :func:`select_psa_kernel`:
 - **resident** (:func:`psa_softmax_bmm`): all source rows per query
-  tile. float32 operands run the f32 SIMT kernel (a first pass over the
-  source rows for the column max ``m`` and sum ``l``, a second that
-  contracts ``p`` against ``x``); bfloat16 operands the tensor-core kernel
-  (:func:`psa_softmax_bmm_wgmma`: one pass, an online softmax, wgmma with
-  ``p`` in bf16);
+  tile, one pass with an online softmax, on the tensor cores: float32
+  operands as 3xTF32 (:func:`psa_softmax_bmm_tf32x3`: each operand split
+  into a TF32 high part and a TF32 remainder, three wgmma passes into f32
+  sums), bfloat16 operands in one bf16 pass (:func:`psa_softmax_bmm_wgmma`);
 - **flash** (:func:`psa_softmax_bmm_flash`): one pass over the source
   rows with an online softmax (running max ``m``, running sum ``l``), f32
   math for both dtypes.
 Backward, from the forward's ``m``, ``l`` and output (p is recomputed as
 ``exp(A - m) / l``; the softmax VJP's column term comes from the flash
 identity ``sum_i p * dP = sum_c g * out``):
-- resident: :func:`psa_softmax_bmm_bwd_da` and :func:`psa_softmax_bmm_bwd_dx`
-  (float32 operands: the SIMT kernels; bfloat16: the tensor-core ones,
-  :func:`psa_softmax_bmm_bwd_da_wgmma` and
-  :func:`psa_softmax_bmm_bwd_dx_wgmma`);
+- resident: :func:`psa_softmax_bmm_bwd_da` (float32 operands: the SIMT
+  kernel; bfloat16: :func:`psa_softmax_bmm_bwd_da_wgmma`) and
+  :func:`psa_softmax_bmm_bwd_dx` (float32: :func:`psa_softmax_bmm_bwd_dx_tf32x3`;
+  bfloat16: :func:`psa_softmax_bmm_bwd_dx_wgmma`);
 - flash: :func:`psa_softmax_bmm_flash_bwd`, both gradients in one launch.
-The dtype rule is a rule, not a fallback: no bf16 call reaches the SIMT
-resident forward, da or dx kernel through these entry points.
+The dtype rule is a rule, not a fallback: if a kernel does not build or a
+launch fails, the call raises. No call reaches the SIMT resident forward or
+dx kernel, nor a bf16 call the SIMT da, through these entry points
+(``_forward_simt``, ``_bwd_da_simt`` and ``_bwd_dx_simt`` launch them, for
+comparison only).
 
 :func:`psa_softmax_bmm` and :func:`psa_softmax_bmm_flash` are
 differentiable: while grad is enabled and an input requires it, they run
@@ -72,6 +76,43 @@ def psa_softmax_bmm_bf16_reference(x: torch.Tensor, a: torch.Tensor,
     factor, so the two agree to the order of the sums and that rounding)."""
     p = torch.softmax(a.float(), dim=1).to(torch.bfloat16).float()
     return torch.bmm(x.float(), p) / norm
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest
+    with ties away from zero, keeping 10 mantissa bits (the low 13 bits of
+    the result are 0)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(v: torch.Tensor):
+    """The 3xTF32 kernels' split of float32 ``v``: the TF32 high part
+    ``hi = rna(v)`` and the TF32 remainder ``lo = rna(v - hi)``, both
+    float32; ``hi + lo`` is ``v`` within 2^-22 |v|."""
+    hi = _tf32_rna(v)
+    return hi, _tf32_rna(v - hi)
+
+
+def _tf32x3_bmm(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``u @ v`` as the 3xTF32 kernels form it: both operands split by
+    :func:`tf32_split`, then ``lo hi + hi lo + hi hi`` in float32 (the
+    ``lo lo`` term is dropped)."""
+    uh, ul = tf32_split(u)
+    vh, vl = tf32_split(v)
+    return torch.bmm(ul, vh) + torch.bmm(uh, vl) + torch.bmm(uh, vh)
+
+
+def psa_softmax_bmm_tf32x3_reference(x: torch.Tensor, a: torch.Tensor,
+                                     norm: float = 1.0) -> torch.Tensor:
+    """Plain version of the 3xTF32 forward: the float32 softmax over axis 1
+    and ``x``, each split into TF32 high parts and remainders, multiplied
+    as ``lo hi + hi lo + hi hi`` in float32, divided by ``norm``. It splits
+    p where the kernel splits p times a per-column factor (its online
+    softmax divides by the column sum at the end), so the two agree to the
+    order of the sums and that rounding."""
+    p = torch.softmax(a.float(), dim=1)
+    return _tf32x3_bmm(x.float(), p) / norm
 
 
 def psa_softmax_stats(a: torch.Tensor):
@@ -126,6 +167,13 @@ def psa_softmax_bmm_bwd_dx_bf16_reference(x, a, g, m, l, norm: float = 1.0):
     return (torch.bmm(gb, p.transpose(1, 2)) / norm).to(x.dtype)
 
 
+def psa_softmax_bmm_bwd_dx_tf32x3_reference(x, a, g, m, l, norm: float = 1.0):
+    """Plain version of the 3xTF32 dx: ``g`` and ``p = exp(a - m) / l``
+    split into TF32 high parts and remainders, ``g p^T / norm`` as ``lo hi
+    + hi lo + hi hi`` in float32, returned in ``x``'s dtype."""
+    return (_tf32x3_bmm(g.float(), _probs(a, m, l).transpose(1, 2)) / norm).to(x.dtype)
+
+
 def psa_softmax_bmm_bwd_reference(x, a, g, m, l, out, norm: float = 1.0):
     """Plain version of the backward kernels: ``(dx, da)`` for the upstream
     gradient ``g`` of ``out``,
@@ -166,6 +214,8 @@ def _lib():
         "semseg_psa_softmax_bmm_wgmma": [_P] * 6 + [_I] * 3 + [_F, _P],
         "semseg_psa_bwd_dx_wgmma": [_P] * 6 + [_I] * 3 + [_F, _P],
         "semseg_psa_bwd_da_wgmma": [_P] * 8 + [_I] * 3 + [_F, _P],
+        "semseg_psa_softmax_bmm_tf32x3": [_P] * 6 + [_I] * 3 + [_F, _P],
+        "semseg_psa_bwd_dx_tf32x3": [_P] * 6 + [_I] * 3 + [_F, _P],
     }
     fns = {}
     for name, argtypes in signatures.items():
@@ -173,7 +223,8 @@ def _lib():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
-    for name in ("semseg_psa_wgmma_pack_elems", "semseg_psa_da_wgmma_pack_elems"):
+    for name in ("semseg_psa_wgmma_pack_elems", "semseg_psa_da_wgmma_pack_elems",
+                 "semseg_psa_tf32x3_pack_elems"):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [_I] * 3, ctypes.c_longlong
         fns[name] = fn
@@ -228,8 +279,14 @@ def _needs_grad(x, a) -> bool:
 
 def _check_bf16(x: torch.Tensor) -> None:
     if x.dtype != torch.bfloat16:
-        raise ValueError(f"the tensor-core kernels take bfloat16 operands, got {x.dtype} "
-                         "(float32 operands run the SIMT kernels)")
+        raise ValueError(f"the bf16 tensor-core kernels take bfloat16 operands, got {x.dtype} "
+                         "(float32 operands run the 3xTF32 kernels and the SIMT da)")
+
+
+def _check_f32(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise ValueError(f"the 3xTF32 kernels take float32 operands, got {x.dtype} "
+                         "(bfloat16 operands run the bf16 tensor-core kernels)")
 
 
 def _wgmma_pack(x: torch.Tensor) -> torch.Tensor:
@@ -240,22 +297,34 @@ def _wgmma_pack(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(elems, dtype=torch.bfloat16, device=x.device)
 
 
+def _tf32x3_pack(x: torch.Tensor) -> torch.Tensor:
+    """Scratch for the 3xTF32 kernels' split copy of x or g, padded to
+    whole tiles (``tc::tf32_pack_elems`` in ``csrc/psa.cu``)."""
+    n, c, hw = x.shape
+    elems = _lib()["semseg_psa_tf32x3_pack_elems"](n, c, hw)
+    return torch.empty(elems, dtype=torch.float32, device=x.device)
+
+
 def _forward(x, a, norm, flash: bool, stats: bool):
     """One forward launch (or its plain version on the CPU): ``out`` and,
-    with ``stats``, ``m`` and ``l``. The resident forward on bfloat16 CUDA
-    operands is the tensor-core kernel; every other case the SIMT one."""
+    with ``stats``, ``m`` and ``l``. The resident forward on CUDA operands
+    is a tensor-core kernel (bf16 or 3xTF32); the flash forward the SIMT
+    one."""
     if x.device.type == "cpu" and a.device.type == "cpu":
         out = psa_softmax_bmm_reference(x, a, norm)
         return (out, *psa_softmax_stats(a)) if stats else out
     _check_cuda(x, a)
-    if not flash and x.dtype == torch.bfloat16:
+    if flash:
+        return _forward_simt(x, a, norm, flash, stats)
+    if x.dtype == torch.bfloat16:
         return _forward_wgmma(x, a, norm, stats)
-    return _forward_simt(x, a, norm, flash, stats)
+    return _forward_tf32x3(x, a, norm, stats)
 
 
 def _forward_simt(x, a, norm, flash: bool, stats: bool):
     """The SIMT forward kernels (f32 math) on checked CUDA operands of
-    either dtype; counts on the entry point's wrapper."""
+    either dtype; counts on the entry point's wrapper. The resident one is
+    off every path, launched for comparison only."""
     n, c, hw = x.shape
     out = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
     m = l = None
@@ -282,6 +351,21 @@ def _forward_wgmma(x, a, norm, stats: bool):
     _launch("semseg_psa_softmax_bmm_wgmma", x, _ptr(x), _ptr(a), _ptr(out), _ptr(m), _ptr(l),
             _ptr(pack), n, c, hw, 1.0 / norm)
     psa_softmax_bmm_wgmma.launches += 1
+    return (out, m, l) if stats else out
+
+
+def _forward_tf32x3(x, a, norm, stats: bool):
+    """The 3xTF32 resident forward on checked float32 CUDA operands."""
+    n, c, hw = x.shape
+    out = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
+    m = l = None
+    if stats:
+        m = torch.empty((n, hw), dtype=torch.float32, device=x.device)
+        l = torch.empty((n, hw), dtype=torch.float32, device=x.device)
+    pack = _tf32x3_pack(x)
+    _launch("semseg_psa_softmax_bmm_tf32x3", x, _ptr(x), _ptr(a), _ptr(out), _ptr(m), _ptr(l),
+            _ptr(pack), n, c, hw, 1.0 / norm)
+    psa_softmax_bmm_tf32x3.launches += 1
     return (out, m, l) if stats else out
 
 
@@ -318,9 +402,11 @@ def psa_softmax_bmm(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
     ``return_stats`` (forward only; the statistics carry no graph). While
     grad is enabled and an input requires it, the call is differentiable
     through the resident backward kernels. CPU tensors run the plain
-    version; float32 CUDA tensors run the SIMT kernel and add one to
-    ``psa_softmax_bmm.launches``; bfloat16 CUDA tensors run the tensor-core
-    kernel and add one to ``psa_softmax_bmm_wgmma.launches``."""
+    version; float32 CUDA tensors run the 3xTF32 kernel and add one to
+    ``psa_softmax_bmm_tf32x3.launches``; bfloat16 CUDA tensors run the bf16
+    tensor-core kernel and add one to ``psa_softmax_bmm_wgmma.launches``.
+    ``psa_softmax_bmm.launches`` counts the SIMT resident kernel, which
+    ``_forward_simt`` launches for comparison only."""
     if _needs_grad(x, a):
         if return_stats:
             raise ValueError("return_stats is forward-only: call under torch.no_grad()")
@@ -355,6 +441,31 @@ def psa_softmax_bmm_wgmma(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
 
 
 psa_softmax_bmm_wgmma.launches = 0
+
+
+def psa_softmax_bmm_tf32x3(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
+                           return_stats: bool = False):
+    """The resident forward on the tensor cores, for float32 operands:
+    ``(1/norm) * x @ p`` with ``p = softmax(a, dim=1)``, ``x`` and ``p``
+    each split into a TF32 high part and a TF32 remainder and multiplied as
+    ``lo hi + hi lo + hi hi`` into float32 sums (``psa_pallas.py::_fwd_kernel``
+    at HIGHEST precision, within its 1e-5 bars). The softmax is online, as
+    in :func:`psa_softmax_bmm_wgmma`. Returns float32 ``[N, C, HW]``, or
+    ``(out, m, l)`` with ``return_stats``. Forward only:
+    :func:`psa_softmax_bmm` is the differentiable entry point and calls
+    this kernel for float32 operands. CPU tensors run the plain version
+    (:func:`psa_softmax_bmm_tf32x3_reference`); CUDA tensors must be
+    float32, run the kernel and add one to
+    ``psa_softmax_bmm_tf32x3.launches``."""
+    if x.device.type == "cpu" and a.device.type == "cpu":
+        out = psa_softmax_bmm_tf32x3_reference(x, a, norm)
+        return (out, *psa_softmax_stats(a)) if return_stats else out
+    _check_cuda(x, a)
+    _check_f32(x)
+    return _forward_tf32x3(x, a, norm, return_stats)
+
+
+psa_softmax_bmm_tf32x3.launches = 0
 
 
 def psa_softmax_bmm_flash(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
@@ -444,21 +555,22 @@ def psa_softmax_bmm_bwd_dx(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:
     """Resident backward, ``dx = g p^T / norm`` in ``x``'s dtype
     (``psa_pallas.py::_bwd_dx_kernel``; ``x`` gives the shape and dtype
     only). CPU tensors run the plain version; float32 CUDA tensors run the
-    SIMT kernel and add one to ``psa_softmax_bmm_bwd_dx.launches``;
-    bfloat16 ones the tensor-core kernel
-    (:func:`psa_softmax_bmm_bwd_dx_wgmma`)."""
+    3xTF32 kernel (:func:`psa_softmax_bmm_bwd_dx_tf32x3`), bfloat16 ones the
+    bf16 tensor-core kernel (:func:`psa_softmax_bmm_bwd_dx_wgmma`).
+    ``psa_softmax_bmm_bwd_dx.launches`` counts the SIMT dx kernel, which
+    ``_bwd_dx_simt`` launches for comparison only."""
     if x.device.type == "cpu":
         return psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l, norm)
     _check_cuda(x, a)
     _check_cuda_f32(x, g=g, m=m, l=l)
     if x.dtype == torch.bfloat16:
         return _bwd_dx_wgmma(x, a, g, m, l, norm)
-    return _bwd_dx_simt(x, a, g, m, l, norm)
+    return _bwd_dx_tf32x3(x, a, g, m, l, norm)
 
 
 def _bwd_dx_simt(x, a, g, m, l, norm):
     """The SIMT dx kernel (f32 math) on checked CUDA operands of either
-    dtype."""
+    dtype; off every path, launched for comparison only."""
     n, c, hw = x.shape
     dx = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
     _launch("semseg_psa_bwd_dx", x, _ptr(a), _ptr(g), _ptr(m), _ptr(l), _ptr(dx),
@@ -498,6 +610,37 @@ def psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m, l, norm: float = 1.0) -> torch.Tens
 
 
 psa_softmax_bmm_bwd_dx_wgmma.launches = 0
+
+
+def _bwd_dx_tf32x3(x, a, g, m, l, norm):
+    """The 3xTF32 dx kernel on checked float32 CUDA operands."""
+    n, c, hw = x.shape
+    dx = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
+    pack = _tf32x3_pack(x)
+    _launch("semseg_psa_bwd_dx_tf32x3", x, _ptr(a), _ptr(g), _ptr(m), _ptr(l), _ptr(dx),
+            _ptr(pack), n, c, hw, 1.0 / norm)
+    psa_softmax_bmm_bwd_dx_tf32x3.launches += 1
+    return dx
+
+
+def psa_softmax_bmm_bwd_dx_tf32x3(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:
+    """Resident dx on the tensor cores, for float32 operands: ``g`` and
+    ``p = exp(a - m) / l`` each split into a TF32 high part and a TF32
+    remainder, ``g p^T / norm`` as ``lo hi + hi lo + hi hi`` into float32
+    sums (``psa_pallas.py::_bwd_dx_kernel`` at HIGHEST precision, within
+    its 1e-4 / 1e-5 bars), returned in float32. CPU tensors run the plain
+    version (:func:`psa_softmax_bmm_bwd_dx_tf32x3_reference`); CUDA tensors
+    must be float32, run the kernel and add one to
+    ``psa_softmax_bmm_bwd_dx_tf32x3.launches``."""
+    if x.device.type == "cpu":
+        return psa_softmax_bmm_bwd_dx_tf32x3_reference(x, a, g, m, l, norm)
+    _check_cuda(x, a)
+    _check_cuda_f32(x, g=g, m=m, l=l)
+    _check_f32(x)
+    return _bwd_dx_tf32x3(x, a, g, m, l, norm)
+
+
+psa_softmax_bmm_bwd_dx_tf32x3.launches = 0
 
 
 def psa_softmax_bmm_flash_bwd(x, a, g, m, l, out, norm: float = 1.0):

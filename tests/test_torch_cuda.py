@@ -161,18 +161,20 @@ def _da_bars(x, a, g, m, l, da32, norm):
 ])
 def test_psa_kernels_match_plain(cuda, n, c, hw, dtype):
     """Both forward entry points, whatever the rule picks. The flash kernel
-    and the f32 resident (SIMT) kernel: max abs diff <= 1e-4 * max|plain| +
-    1e-5 (f32 sums over up to hw terms in another order). bf16 operands
-    send the resident forward to the tensor cores, held to ``_fwd_bars``.
-    m exact and l within 1e-5 relative."""
+    and the f32 resident (3xTF32) kernel: max abs diff <= 1e-4 * max|plain|
+    + 1e-5 (f32 sums over up to hw terms in another order). bf16 operands
+    send the resident forward to the bf16 tensor-core kernel, held to
+    ``_fwd_bars``. m exact and l within 1e-5 relative."""
     g = torch.Generator(device=cuda).manual_seed(hw)
     x = torch.randn(n, c, hw, generator=g, device=cuda).to(dtype)
     a = (torch.randn(n, hw, hw, generator=g, device=cuda) * 3).to(dtype)
     want = psa.psa_softmax_bmm_reference(x, a, 1.3)
     m_ref, l_ref = psa.psa_softmax_stats(a)
     bar = 1e-4 * want.abs().max().item() + 1e-5
-    resident = psa.psa_softmax_bmm_wgmma if dtype == torch.bfloat16 else psa.psa_softmax_bmm
-    counters = (psa.psa_softmax_bmm, psa.psa_softmax_bmm_wgmma, psa.psa_softmax_bmm_flash)
+    resident = (psa.psa_softmax_bmm_wgmma if dtype == torch.bfloat16
+                else psa.psa_softmax_bmm_tf32x3)
+    counters = (psa.psa_softmax_bmm, psa.psa_softmax_bmm_wgmma, psa.psa_softmax_bmm_tf32x3,
+                psa.psa_softmax_bmm_flash)
     before = {f: f.launches for f in counters}
     res = psa.psa_softmax_bmm(x, a, 1.3)
     out, m, l = psa.psa_softmax_bmm_flash(x, a, 1.3, return_stats=True)
@@ -271,7 +273,7 @@ def test_wgmma_kernels_reject_what_they_do_not_take(cuda):
     g = torch.zeros(1, 4, 9, device=cuda)
     m, l = torch.zeros(1, 9, device=cuda), torch.ones(1, 9, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
-        psa.psa_softmax_bmm_wgmma(x, a)  # f32 operands run the SIMT kernels
+        psa.psa_softmax_bmm_wgmma(x, a)  # f32 operands run the 3xTF32 kernels
     with pytest.raises(ValueError, match="bfloat16"):
         psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m, l)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -286,6 +288,92 @@ def test_wgmma_kernels_reject_what_they_do_not_take(cuda):
     assert psa.psa_softmax_bmm_wgmma(xb, ab).shape == (1, 4, 9)
     assert psa.psa_softmax_bmm_bwd_dx_wgmma(xb, ab, g, m, l).dtype == torch.bfloat16
     assert psa.psa_softmax_bmm_bwd_da_wgmma(xb, ab, g, m, l, g).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n,c,hw", [
+    (2, 24, 100),    # one M tile per warpgroup (128 channels a block)
+    (1, 130, 97),    # 256 channels a block, ragged stages
+    (8, 512, 900),   # ADE20K PSANet: 512 channels a block
+    (8, 512, 2025),  # Cityscapes PSANet (an f32 train step at batch 8)
+])
+def test_tf32x3_kernels_match_plain(cuda, n, c, hw):
+    """The 3xTF32 forward and dx on f32 operands against their plain
+    versions (the same split, sums in another order) and the plain f32
+    versions: within 1e-4 * max|plain| + 1e-5; element by element within
+    the JAX package's f32 bars (forward rtol = atol = 1e-5, dx rtol 1e-4,
+    atol 1e-5, ``tests/test_psa_pallas.py``) against the product in
+    float64, since at hw 2025 the plain f32 versions' own rounding takes
+    up to 0.64 of the forward's bar; m exact, l within 1e-5; two calls
+    bit-identical; one launch each."""
+    g0 = torch.Generator(device=cuda).manual_seed(hw + 11)
+    x = torch.randn(n, c, hw, generator=g0, device=cuda)
+    a = torch.randn(n, hw, hw, generator=g0, device=cuda) * 3
+    g = torch.randn(n, c, hw, generator=g0, device=cuda)
+    with torch.no_grad():
+        before = (psa.psa_softmax_bmm_tf32x3.launches, psa.psa_softmax_bmm_bwd_dx_tf32x3.launches)
+        out, m, l = psa.psa_softmax_bmm_tf32x3(x, a, 1.3, return_stats=True)
+        dx = psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g, m, l, 1.3)
+        torch.cuda.synchronize()
+        assert (psa.psa_softmax_bmm_tf32x3.launches,
+                psa.psa_softmax_bmm_bwd_dx_tf32x3.launches) == (before[0] + 1, before[1] + 1)
+        assert out.dtype == dx.dtype == torch.float32
+        m_ref, l_ref = psa.psa_softmax_stats(a)
+        assert torch.equal(m, m_ref) and ((l - l_ref).abs() / l_ref).max().item() <= 1e-5
+        for want in (psa.psa_softmax_bmm_reference(x, a, 1.3),
+                     psa.psa_softmax_bmm_tf32x3_reference(x, a, 1.3)):
+            assert (out - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+        for want in (psa.psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l, 1.3),
+                     psa.psa_softmax_bmm_bwd_dx_tf32x3_reference(x, a, g, m, l, 1.3)):
+            assert (dx - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+        p64 = torch.softmax(a.double(), dim=1)
+        torch.testing.assert_close(out.double(), torch.bmm(x.double(), p64) / 1.3,
+                                   rtol=1e-5, atol=1e-5)
+        p64 = torch.exp(a.double() - m.double()[:, None]) / l.double()[:, None]
+        torch.testing.assert_close(dx.double(), torch.bmm(g.double(), p64.transpose(1, 2)) / 1.3,
+                                   rtol=1e-4, atol=1e-5)
+        assert torch.equal(out, psa.psa_softmax_bmm_tf32x3(x, a, 1.3))
+        assert torch.equal(dx, psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g, m, l, 1.3))
+
+
+def test_f32_entry_points_run_the_tf32x3_kernels(cuda):
+    """float32 operands: the resident forward and dx entry points (and
+    autograd through them) launch the 3xTF32 kernels, never the SIMT
+    resident forward or dx; da stays SIMT."""
+    g0 = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(2, 16, 70, generator=g0, device=cuda).requires_grad_()
+    a = (torch.randn(2, 70, 70, generator=g0, device=cuda) * 3).requires_grad_()
+    g = torch.randn(2, 16, 70, generator=g0, device=cuda)
+    counters = (psa.psa_softmax_bmm_tf32x3, psa.psa_softmax_bmm_bwd_dx_tf32x3,
+                psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm, psa.psa_softmax_bmm_bwd_dx,
+                psa.psa_softmax_bmm_wgmma, psa.psa_softmax_bmm_bwd_dx_wgmma)
+    before = [f.launches for f in counters]
+    torch.autograd.grad(psa.psa_softmax_bmm(x, a, 1.3), (x, a), g)
+    with torch.no_grad():
+        _, m, l = psa.psa_softmax_bmm(x, a, 1.3, return_stats=True)
+        psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1, 0, 0, 0, 0]
+
+
+def test_tf32x3_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 4, 9, device=cuda)
+    a = torch.zeros(1, 9, 9, device=cuda)
+    g = torch.zeros(1, 4, 9, device=cuda)
+    m, l = torch.zeros(1, 9, device=cuda), torch.ones(1, 9, device=cuda)
+    xb, ab = x.to(torch.bfloat16), a.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        psa.psa_softmax_bmm_tf32x3(xb, ab)  # bf16 operands run the bf16 tensor-core kernels
+    with pytest.raises(ValueError, match="float32"):
+        psa.psa_softmax_bmm_bwd_dx_tf32x3(xb, ab, g, m, l)
+    with pytest.raises(ValueError, match="contiguous"):
+        psa.psa_softmax_bmm_tf32x3(x, a.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g.transpose(1, 2).contiguous().transpose(1, 2),
+                                          m, l)
+    with pytest.raises(ValueError, match="float32"):
+        psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g.to(torch.bfloat16), m, l)
+    assert psa.psa_softmax_bmm_tf32x3(x, a).shape == (1, 4, 9)
+    assert psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g, m, l).dtype == torch.float32
 
 
 def test_f32_da_runs_the_simt_kernel(cuda):
@@ -398,7 +486,8 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
         dx32, da32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, m_ref, l_ref,
                                                        fout, 1.3)
         bf16 = dtype == torch.bfloat16
-        dx_counter = psa.psa_softmax_bmm_bwd_dx_wgmma if bf16 else psa.psa_softmax_bmm_bwd_dx
+        dx_counter = (psa.psa_softmax_bmm_bwd_dx_wgmma if bf16
+                      else psa.psa_softmax_bmm_bwd_dx_tf32x3)
         da_counter = psa.psa_softmax_bmm_bwd_da_wgmma if bf16 else psa.psa_softmax_bmm_bwd_da
         counters = (da_counter, dx_counter, psa.psa_softmax_bmm_flash_bwd)
         before = tuple(f.launches for f in counters)
@@ -430,14 +519,14 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
 @pytest.mark.parametrize("entry,bwd", [("psa_softmax_bmm", 2), ("psa_softmax_bmm_flash", 1)])
 def test_psa_autograd_on_cuda(cuda, entry, bwd):
     """Autograd through the kernels: gradients of the plain forward within
-    the f32 bars; the resident path launches da and dx, the flash path its
-    fused backward once."""
+    the f32 bars; the resident path launches da (SIMT) and dx (3xTF32), the
+    flash path its fused backward once."""
     fn = getattr(psa, entry)
     g0 = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(2, 64, 150, generator=g0, device=cuda).requires_grad_()
     a = (torch.randn(2, 150, 150, generator=g0, device=cuda) * 3).requires_grad_()
     g = torch.randn(2, 64, 150, generator=g0, device=cuda)
-    counters = (psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm_bwd_dx,
+    counters = (psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm_bwd_dx_tf32x3,
                 psa.psa_softmax_bmm_flash_bwd)
     before = [f.launches for f in counters]
     dx, da = torch.autograd.grad(fn(x, a, 2.0), (x, a), g)

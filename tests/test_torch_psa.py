@@ -1,7 +1,9 @@
 """The port's PSANet path against the JAX package's, on the CPU.
 
 psamask (exact), the plain versions of the two PSA forward kernels against
-the JAX Pallas kernels in interpret mode, the ``PSA`` module, PSANet50 eval
+the JAX Pallas kernels in interpret mode (and the emulations of the
+tensor-core kernels' bf16 and 3xTF32 roundings against the JAX bars), the
+``PSA`` module, PSANet50 eval
 logits, the state_dict converter and the sliding-window slice. Inputs are
 made from seeds with numpy and handed to both sides; JAX-initialised
 weights (with drawn BN statistics) are carried into the port through
@@ -445,6 +447,83 @@ def test_tensor_core_da_rounding_within_bars(n, c, hw, tile_j, norm):
     assert not torch.equal(da.float(), da32.to(torch.bfloat16).float())  # g is rounded
     assert ((da.float() - da32).abs() <= _da_bars(x, a, gt, m, l, da32, norm)).all()
     np.testing.assert_allclose(da.float().numpy(), want_da, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("scale", [1.0, 3e4, 1e-5])
+def test_tf32_split(scale):
+    """``tf32_split`` as ``cvt.rna.tf32.f32`` twice: both parts have their
+    low 13 bits clear, ``hi + lo`` is ``v`` within 2^-21 |v|, and ``hi``
+    rounds ties away from zero."""
+    rs = np.random.RandomState(int(np.log10(scale)) + 9)
+    v = torch.from_numpy((rs.randn(4096) * scale).astype(np.float32))
+    hi, lo = psa.tf32_split(v)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((hi.double() + lo.double() - v.double()).abs() <= 2.0 ** -21 * v.double().abs()).all()
+    assert not torch.equal(hi, v) and (lo != 0).any()
+    p2 = 2.0 ** np.floor(np.log2(scale))  # keeps ties exact
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -23]) * p2
+    assert psa.tf32_split(tie)[0].tolist() == (torch.tensor(
+        [1 + 2 ** -10, -(1 + 2 ** -10), 1.0]) * p2).tolist()
+
+
+@pytest.mark.parametrize("n,c,hw,tile_j,norm", [
+    (2, 24, 100, 32, 1.0),
+    (1, 64, 300, 128, 1.3),  # ragged: 300 is no multiple of the kernel's 64 tile
+])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_tf32x3_plain_matches_pallas(n, c, hw, tile_j, norm, passes):
+    """The 3xTF32 kernels' rounding, emulated by their plain versions
+    (``psa_softmax_bmm_tf32x3_reference``,
+    ``psa_softmax_bmm_bwd_dx_tf32x3_reference``: operands split into TF32
+    high parts and remainders, ``lo hi + hi lo + hi hi`` in f32), against
+    the JAX package's f32 Pallas kernel and its VJP in interpret mode
+    (HIGHEST precision) on the same numpy-seeded inputs, at its own bars:
+    rtol = atol = 1e-5 for the forward, rtol 1e-4 and atol 1e-5 for dx. On
+    the CPU the 3xTF32 entry points run these plain versions and no counter
+    moves. ``passes = 1``: a single TF32 pass (hi hi) fails the same bars,
+    so they tell 3xTF32 from TF32."""
+    (jx, ja), (x, a) = _operands(hw + 8, n, c, hw, "f32")
+    g = np.random.RandomState(hw + 9).randn(n, c, hw).astype(np.float32)
+    fwd = lambda xx, aa: jpsa.psa_softmax_bmm(xx, aa, norm, tile_j, True)  # noqa: E731
+    want_out, pull = jax.vjp(fwd, jx, ja)
+    want_out = np.asarray(want_out)
+    want_dx = np.asarray(pull(jnp.asarray(g))[0])
+
+    gt = torch.from_numpy(g)
+    m, l = psa.psa_softmax_stats(a)
+    if passes == 1:
+        xh, ph = psa.tf32_split(x)[0], psa.tf32_split(torch.softmax(a, dim=1))[0]
+        gh, pth = psa.tf32_split(gt)[0], psa.tf32_split(psa._probs(a, m, l).transpose(1, 2))[0]
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose((torch.bmm(xh, ph) / norm).numpy(), want_out,
+                                       rtol=1e-5, atol=1e-5)
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose((torch.bmm(gh, pth) / norm).numpy(), want_dx,
+                                       rtol=1e-4, atol=1e-5)
+        return
+    counters = (psa.psa_softmax_bmm, psa.psa_softmax_bmm_tf32x3, psa.psa_softmax_bmm_bwd_dx,
+                psa.psa_softmax_bmm_bwd_dx_tf32x3)
+    before = [f.launches for f in counters]
+    out, om, ol = psa.psa_softmax_bmm_tf32x3(x, a, norm, return_stats=True)
+    dx = psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, gt, m, l, norm)
+    entry = psa.psa_softmax_bmm(x, a, norm)
+    entry_dx = psa.psa_softmax_bmm_bwd_dx(x, a, gt, m, l, norm)
+    assert [f.launches for f in counters] == before  # CPU: plain versions
+    assert out.dtype == dx.dtype == torch.float32
+    torch.testing.assert_close(out, psa.psa_softmax_bmm_tf32x3_reference(x, a, norm),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(dx, psa.psa_softmax_bmm_bwd_dx_tf32x3_reference(
+        x, a, gt, m, l, norm), rtol=0, atol=0)
+    assert torch.equal(om, m) and torch.equal(ol, l)
+    # the f32 entry points keep the plain f32 versions on the CPU
+    torch.testing.assert_close(entry, psa.psa_softmax_bmm_reference(x, a, norm), rtol=0, atol=0)
+    torch.testing.assert_close(entry_dx, psa.psa_softmax_bmm_bwd_dx_reference(
+        x, a, gt, m, l, norm), rtol=0, atol=0)
+    assert not torch.equal(out, entry)  # the emulation does split
+    np.testing.assert_allclose(out.numpy(), want_out, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("entry", ["psa_softmax_bmm", "psa_softmax_bmm_flash"])
