@@ -19,9 +19,23 @@ Builds go under ``build/psa_ablation/``.
   layouts: ``mt1``, 128 channels a block (four blocks a query tile at
   C = 512) in place of 256, and ``mt1_2blocks``, the same with two blocks
   an SM (at most 128 registers a thread).
+- ``--family tf32x3_da``: the f32 da on the tensor cores as 3xTF32, at (8|16,
+  512, 2025) and (1, 512, 7921). Removed: the transposing pack, the rounded
+  sums (the per-stage fold into the running sum), the two small-term passes
+  (one TF32 pass left), the epilogue (A's loads, the exps, the stores of
+  da), the operand copies, all three wgmma passes. And two additions:
+  ``prefetch``, the epilogue's A tile prefetched into L2 before the channel
+  loop, and ``rows8``, the epilogue with 8 rows of A in flight a warp in
+  place of 4.
+
+``--against PATH`` builds another ``psa.cu`` unchanged (an older commit's,
+unpacked with ``git archive`` under ``build/``) and times it beside the
+variants as ``against``; with ``tf32x3_da`` it also says whether its da
+equals the base's bit for bit.
 
 Usage, from the repository root on a machine with the card:
-    python3 chip_probes/psa_ablation.py [--family bf16|tf32x3]
+    python3 chip_probes/psa_ablation.py [--family bf16|tf32x3|tf32x3_da]
+        [--against build/parent/semseg_torch/csrc/psa.cu]
 """
 
 import argparse
@@ -90,13 +104,37 @@ TF32_VARIANTS = {
                  "pack, c, hw, cp,\n                                                             "
                  "             hwp, total4);\n", "")],
 }
-FAMILIES = {"bf16": VARIANTS, "tf32x3": TF32_VARIANTS}
+TF32_DA_VARIANTS = {
+    "base": [],
+    "no_pack": [("    psa_pack_tf32x3_t_kernel<<<grid, block, 0, s>>>(x, xpk, c, hw, cp, hwp);\n"
+                 "    psa_pack_tf32x3_t_kernel<<<grid, block, 0, s>>>(g, gpk, c, hw, cp, hwp);\n",
+                 "")],
+    "no_fold": [("    for (int e = 0; e < 64; ++e) sum[e] += acc[e];",
+                 "    for (int e = 0; e < 64; e += 64) sum[e] += acc[e];")],
+    "one_pass": [("      wgmma_m64n128k8_tf32(acc, al, bh, k);  // small terms first; k = 0 starts "
+                  "from 0\n      wgmma_m64n128k8_tf32(acc, ah, bl, 1);\n", "")],
+    "no_epilogue": [("for (int r0 = warp; r0 < kTdTile;", "for (int r0 = warp; r0 < 0;")],
+    "prefetch": [("  for (int s = 0; s < stages; ++s) {\n    cp_async_wait<kTdStages - 2>();",
+                  "  for (int id = tid; id < kTdTile * 5; id += kThreads) {\n"
+                  "    const int i = i0 + id / 5, j = min(j0 + 32 * (id % 5), min(j0 + kTdTile, HW)"
+                  " - 1);\n    if (i < HW) asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"("
+                  "a + (n * HW + i) * (long long)HW + j));\n  }\n"
+                  "  for (int s = 0; s < stages; ++s) {\n    cp_async_wait<kTdStages - 2>();")],
+    "rows8": [("  constexpr int kRows = 4;", "  constexpr int kRows = 8;")],
+    "no_operand": [("      cp_async16(dst, xn + off);\n      cp_async16(dst + kTdPart, xn + part + "
+                    "off);\n      cp_async16(dst + 2 * kTdPart, gn + off);\n      cp_async16(dst + "
+                    "3 * kTdPart, gn + part + off);\n", "")],
+    "no_wgmma": [("      wgmma_m64n128k8_tf32(acc, al, bh, k);  // small terms first; k = 0 starts "
+                  "from 0\n      wgmma_m64n128k8_tf32(acc, ah, bl, 1);\n      "
+                  "wgmma_m64n128k8_tf32(acc, ah, bh, 1);\n", "")],
+}
+FAMILIES = {"bf16": VARIANTS, "tf32x3": TF32_VARIANTS, "tf32x3_da": TF32_DA_VARIANTS}
 OUT = ROOT / "build" / "psa_ablation"
 
 
-def build(family, name):
-    text = (ROOT / "semseg_torch" / "csrc" / "psa.cu").read_text()
-    for old, new in FAMILIES[family][name]:
+def build(family, name, source=None):
+    text = Path(source or ROOT / "semseg_torch" / "csrc" / "psa.cu").read_text()
+    for old, new in FAMILIES[family].get(name, []):
         if old not in text:
             raise RuntimeError(f"variant {name}: {old!r} is not in psa.cu")
         text = text.replace(old, new)
@@ -151,20 +189,60 @@ def time_tf32x3(libs, dev):
         print(f"3xTF32 {(n, c, hw)} ms: " + "; ".join(row), flush=True)
 
 
+def time_tf32x3_da(libs, dev):
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for n, c, hw in [(8, 512, 2025), (16, 512, 2025), (1, 512, 7921)]:
+        g0 = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(n, c, hw, generator=g0, device=dev)
+        a = torch.randn(n, hw, hw, generator=g0, device=dev) * 3
+        g = torch.randn(n, c, hw, generator=g0, device=dev)
+        m, l = psa.psa_softmax_stats(a)
+        delta = torch.randn(n, hw, generator=g0, device=dev)
+        da = torch.empty_like(a)
+        stream = torch.cuda.current_stream().cuda_stream
+        row, results = [], {}
+        for name, so in libs.items():
+            lib = ctypes.CDLL(str(so))
+            fn = lib.semseg_psa_bwd_da_tf32x3
+            fn.argtypes, fn.restype = [ptr] * 8 + [i32] * 3 + [f32, ptr], ctypes.c_int
+            elems = lib.semseg_psa_da_tf32x3_pack_elems
+            elems.argtypes, elems.restype = [i32] * 3, ctypes.c_longlong
+            pack = torch.empty(elems(n, c, hw), device=dev)
+            t = ms(lambda: fn(x.data_ptr(), g.data_ptr(), a.data_ptr(), m.data_ptr(),
+                              l.data_ptr(), delta.data_ptr(), da.data_ptr(), pack.data_ptr(),
+                              n, c, hw, 1.0, stream))
+            row.append(f"{name} {t:.4f}")
+            if name in ("base", "against"):
+                results[name] = da.clone()
+        print(f"3xTF32 da {(n, c, hw)} ms: " + "; ".join(row), flush=True)
+        if "against" in results:
+            print(f"3xTF32 da {(n, c, hw)}: against == base bit for bit "
+                  f"{torch.equal(results['base'], results['against'])}", flush=True)
+        del x, a, g, da, results
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--family", choices=sorted(FAMILIES), default="bf16")
-    family = ap.parse_args().family
+    ap.add_argument("--against", help="another psa.cu, built unchanged and timed beside")
+    args = ap.parse_args()
+    family = args.family
     if not torch.cuda.is_available():
         print("psa_ablation: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     OUT.mkdir(parents=True, exist_ok=True)
-    names = FAMILIES[family]
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = dict(pool.map(lambda name: build(family, name), names))
+    jobs = [(name, None) for name in FAMILIES[family]]
+    if args.against:
+        jobs.append(("against", args.against))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(pool.map(lambda job: build(family, *job), jobs))
     dev = torch.device("cuda")
     if family == "tf32x3":
         time_tf32x3(libs, dev)
+        return 0
+    if family == "tf32x3_da":
+        time_tf32x3_da(libs, dev)
         return 0
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for n, c, hw in [(8, 512, 2025), (16, 512, 2025)]:

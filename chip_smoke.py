@@ -29,17 +29,21 @@ each (12 runs after 4):
    them and held to 1e-4. ``m`` exact and ``l`` within 1e-5 relative for
    every kernel; kernel, SIMT, plain times and the bound;
 12. PSA backward kernels vs plain at the same extents: da, dx and the
-   flash backward against the plain backward from the same statistics;
-   f32 within 1e-4 * max|plain| + 1e-5, and the 3xTF32 dx element by
-   element within the JAX package's f32 VJP bar (rtol 1e-4, atol 1e-5)
-   against a float64 plain version;
+   flash backward's route (the same tensor-core dx and da from the flash
+   forward's statistics) against the plain backward from the same
+   statistics; f32 within 1e-4 * max|plain| + 1e-5, the 3xTF32 dx element
+   by element within the JAX package's f32 VJP bar (rtol 1e-4, atol 1e-5)
+   against a float64 plain version (``elementwise_f64``), and the 3xTF32 da
+   element by element within that bar plus f32's cancellation term in
+   dP - delta (``da_f32_ratios``; its ratio to JAX's bar alone printed);
    bf16 da and dx on the tensor cores element by element within p 2^-8
    (|x|^T |g|) / norm and 2^-7 (|g| @ p^T) / norm, each plus one bf16 ulp
    of |plain| (``da_bars``, ``dx_bars``); the tensor-core da and dx give
-   bit-identical results in two calls; the bf16 flash backward and the SIMT
-   da and dx within one bf16 ulp of max|plain| against the plain grads
-   rounded to bf16; kernel, SIMT, plain and plain-autograd times and the
-   bounds;
+   bit-identical results in two calls; the SIMT da and dx and the fused
+   SIMT flash backward they replaced (launched directly) within
+   1e-4 * max|plain| + 1e-5 (f32) or one bf16 ulp of max|plain| against the
+   plain grads rounded to bf16; kernel, SIMT, plain and plain-autograd
+   times and the bounds;
 5. PSPNet slice: ``build_evaluator`` answers requests; each must launch the
    stitch kernel exactly twice (two chunks) and no PSA kernel; images/s;
 6. PSPNet fused vs plain stitch: argmax agreement >= 0.995, probabilities
@@ -68,14 +72,16 @@ each (12 runs after 4):
    (device busy, idle share, the PSA kernels' device time, top kernels in
    ``build/chip_smoke/``);
 15. PSPNet50 bf16, 3 train steps through the same Trainer: no PSA launch;
-16. PSANet50 f32 train step, batch 2: the 3xTF32 forward and dx and the
-   SIMT da twice each, against plain attention: losses within 1e-5
+16. PSANet50 f32 train step, batch 2: the 3xTF32 forward, dx and da
+   twice each, against plain attention: losses within 1e-5
    relative and every parameter gradient within the relative bar of
    ``GRAD_REL``; then the f32 step timed at batch 8 on a device-resident
    batch (2 warm-up, 5 timed steps, the same launches per step): images/s,
    peak memory, and the PSA kernels' share of a profiler window of 2 steps;
-17. the same at shrink 1 (hw 7921): the flash forward and flash backward
-   twice each; gradients against plain attention;
+17. the same at shrink 1 (hw 7921): the flash forward and the flash
+   backward's route (its own count, and the 3xTF32 dx and da it launches)
+   twice each; gradients against
+   plain attention; seconds per step over 3 more steps;
 18. the PSA module at full width (2048 -> 512, 89x89 input, batch 2),
    f32, eval-mode BN: output and input gradient on the card against the
    CPU within 1e-3 relative, parameter gradients within ``PARAM_REL``; the
@@ -87,10 +93,11 @@ no jax and nothing of the JAX package (the port reads configs and data
 through its own ``semseg_torch.config`` and ``semseg_torch.data``); that is
 checked at the end. The line before the last is the kernels' JSON record
 (each kernel at the shape and dtype of the path it serves, with its bound
-on an H100 SXM; the SIMT resident forward and dx are off every path since
-the f32 ones run as 3xTF32, and are listed with their comparison times and
-0 launches); the last line is ``{"ok": true, "device": {"platform":
-"gpu", "kind": ..., "count": ...}}``.
+on an H100 SXM; the flash backward's row is its route, the 3xTF32 dx and
+da, counted on its own; the SIMT resident forward, da and dx and the fused
+SIMT flash backward (``psa_flash_bwd_simt``) are off every path, and are
+listed with their comparison times and 0 launches); the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
@@ -125,6 +132,9 @@ GRAD_REL = 1e-2  # measured at most 3.9e-3 (H100 80GB HBM3, 700 W)
 # at most 1.42e-2 with TF32 off and 5.57e-2 with it on, the same in each of
 # three runs (H100 80GB HBM3, 700 W). The TF32-on run must fail the bar.
 PARAM_REL = 3e-2
+# Phase 12: the f32 da's cancellation term, in units of 2^-24 (|x|^T |g| /
+# norm + sum_c |g out|) p (see ``da_f32_ratios``).
+DA_F32_K = 2.0
 OUT_DIR = Path("build") / "chip_smoke"
 
 
@@ -154,11 +164,12 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 def kernels():
     """The launch-counting wrappers of every kernel, by name.
-    ``psa_softmax_bmm``, ``psa_softmax_bmm_bwd_da`` and
-    ``psa_softmax_bmm_bwd_dx`` count the SIMT kernels (on the paths only
-    da, for f32 operands); the ``_wgmma`` ones the bf16 tensor-core kernels
-    and the ``_tf32x3`` ones the 3xTF32 kernels that the same entry points
-    launch for bf16 and f32 operands."""
+    ``psa_softmax_bmm``, ``psa_softmax_bmm_bwd_da``,
+    ``psa_softmax_bmm_bwd_dx`` and ``psa_flash_bwd_simt`` count the SIMT
+    kernels, which no path launches; the ``_wgmma`` ones the bf16
+    tensor-core kernels and the ``_tf32x3`` ones the 3xTF32 kernels that the
+    same entry points (and the flash backward's route) launch for bf16 and
+    f32 operands; ``psa_softmax_bmm_flash_bwd`` counts the route."""
     from semseg_torch.ops import psa
     from semseg_torch.ops.stitch import upsample_softmax_flip
 
@@ -169,10 +180,12 @@ def kernels():
             "psa_softmax_bmm_flash": psa.psa_softmax_bmm_flash,
             "psa_softmax_bmm_bwd_da": psa.psa_softmax_bmm_bwd_da,
             "psa_softmax_bmm_bwd_da_wgmma": psa.psa_softmax_bmm_bwd_da_wgmma,
+            "psa_softmax_bmm_bwd_da_tf32x3": psa.psa_softmax_bmm_bwd_da_tf32x3,
             "psa_softmax_bmm_bwd_dx": psa.psa_softmax_bmm_bwd_dx,
             "psa_softmax_bmm_bwd_dx_wgmma": psa.psa_softmax_bmm_bwd_dx_wgmma,
             "psa_softmax_bmm_bwd_dx_tf32x3": psa.psa_softmax_bmm_bwd_dx_tf32x3,
-            "psa_softmax_bmm_flash_bwd": psa.psa_softmax_bmm_flash_bwd}
+            "psa_softmax_bmm_flash_bwd": psa.psa_softmax_bmm_flash_bwd,
+            "psa_flash_bwd_simt": psa._flash_bwd_simt}
 
 
 def bound(nbytes, flops, dtype, products=True):
@@ -250,6 +263,33 @@ def elementwise_f64(got, x, p, norm=1.0, rtol=1e-5, atol=1e-5):
     than all of it (H100 80GB HBM3, ``chip_probes/psa_tf32x3_check.py``)."""
     want64 = torch.bmm(x.double(), p.double()) / norm
     return ((got.double() - want64).abs() / (atol + rtol * want64.abs())).max().item()
+
+
+def da_f32_ratios(da, x, a, g, m, l, out, norm=1.0):
+    """``(jax, derived)``: the largest |da - want64| over JAX's f32 VJP bar,
+    1e-5 + 1e-4 |want64|, and over the derived bar
+
+        1e-4 |want64| + 1e-5 + DA_F32_K p 2^-24 (|x|^T |g| / norm + sum_c |g out|),
+
+    with want64 = p (x^T g / norm - delta) in float64 on the card: p from
+    the same m and l, delta = sum_c g out from the same f32 forward output.
+    JAX's bar sits at f32's own floor for da: where p is near 1 and dP ~
+    delta, |da| ~ 0 and the atol alone is left, while dP and delta are f32
+    sums of C terms whose roundings are each up to 2^-24 times the sum of
+    the magnitudes, |x|^T |g| / norm and sum_c |g out|. The f32 plain da
+    takes up to 2.372 of JAX's bar at (8, 512, 2025) (H100 80GB HBM3, 700 W,
+    ``chip_smoke.py``); the derived bar adds DA_F32_K such roundings of
+    each, scaled by p. A single TF32 pass (2^-11 per operand) fails it
+    (``tests/test_torch_cuda.py::test_f32_da_runs_the_tf32x3_kernel``)."""
+    p64 = torch.exp(a.double() - m.double()[:, None]) / l.double()[:, None]
+    d64 = (g.double() * out.double()).sum(1)
+    want64 = p64 * (torch.bmm(x.double().transpose(1, 2), g.double()) / norm - d64[:, None])
+    err = (da.double() - want64).abs()
+    jax = (err / (1e-5 + 1e-4 * want64.abs())).max().item()
+    mag = (torch.bmm(x.double().abs().transpose(1, 2), g.double().abs()) / norm
+           + (g.double() * out.double()).abs().sum(1)[:, None])
+    bar = 1e-4 * want64.abs() + 1e-5 + DA_F32_K * 2.0 ** -24 * p64 * mag
+    return jax, (err / bar).max().item()
 
 
 def launches(**nonzero):
@@ -634,16 +674,22 @@ def phase_shrink1(dev, image):
 
 def phase_psa_backward(dev):
     """The backward kernels against the plain backward at the recipe
-    extents, from the kernels' own forward statistics (phase 12). f32: da
-    (SIMT), dx (3xTF32), the SIMT dx it replaced (launched directly) and
-    the flash backward within ``PSA_REL``; the 3xTF32 dx element by element
-    within the JAX package's f32 VJP bar (rtol 1e-4, atol 1e-5) against
-    the product in float64 (``elementwise_f64``), two calls bit-identical.
-    bf16: da and dx on the tensor cores within ``da_bars`` and ``dx_bars``
-    against the f32 plain da and dx, element by element, and two calls of
-    each bit-identical; the flash backward and the SIMT da
-    and dx they replaced (launched directly) within one bf16 ulp of
-    max|plain| against the plain grads rounded to bf16. Printed beside, not
+    extents, from the kernels' own forward statistics (phase 12). The
+    flash backward's route (``psa_softmax_bmm_flash_bwd``: the tensor-core
+    dx and da of the dtype, from the flash forward's m, l and output) is
+    held to the bars of those kernels against the plain backward from the
+    same statistics. f32: da and dx (3xTF32), the route, the SIMT da and dx
+    and the fused SIMT flash backward they replaced (launched directly)
+    within ``PSA_REL``; the 3xTF32 dx element by element within the JAX
+    package's f32 VJP bar (rtol 1e-4, atol 1e-5) against float64
+    (``elementwise_f64``), the 3xTF32 da within that bar plus f32's
+    cancellation term (``da_f32_ratios``; its ratio to JAX's bar alone, and
+    the f32 plain da's to both, printed beside), two calls bit-identical.
+    bf16: da and dx on the tensor cores, and the route, within ``da_bars``
+    and ``dx_bars`` against the f32 plain da and dx, element by element, and
+    two calls of each bit-identical; the SIMT da and dx and the fused SIMT
+    flash backward within one bf16 ulp of max|plain| against the plain
+    grads rounded to bf16. Printed beside, not
     a gate: the largest |err| / (1e-2 + 1e-2 |plain|) of both bf16 dx
     kernels and of the TPU kernel's own rounding on the same inputs
     (``psa_softmax_bmm_bwd_dx_bf16_reference``: p and g rounded to bf16, f32
@@ -670,32 +716,46 @@ def phase_psa_backward(dev):
                 fout, fm, fl = psa.psa_softmax_bmm_flash(x, a, return_stats=True)
                 da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out)
                 dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)
-                sda = psa._bwd_da_simt(x, a, g, m, l, out, 1.0) if bf16 else da
+                sda = psa._bwd_da_simt(x, a, g, m, l, out, 1.0)
                 sdx = psa._bwd_dx_simt(x, a, g, m, l, 1.0)
                 fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout)
+                sfdx, sfda = psa._flash_bwd_simt(x, a, g, fm, fl, fout, 1.0)
                 torch.cuda.synchronize()
                 dx32, da32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, m, l, out)
+                fdx32, fda32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, fm, fl,
+                                                                 fout)
                 if not bf16:
-                    want_dx, want_da = dx32, da32
+                    want_dx, want_da, fwant_dx, fwant_da = dx32, da32, fdx32, fda32
                     bar_dx = PSA_REL * dx32.abs().max().item() + 1e-5
                     bar_da = PSA_REL * da32.abs().max().item() + 1e-5
                     dx_ratio = (dx - dx32).abs().max().item() / bar_dx
                     da_ratio = (da - da32).abs().max().item() / bar_da
+                    route_ratio = max((fdx - fdx32).abs().max().item() / bar_dx,
+                                      (fda - fda32).abs().max().item() / bar_da)
                     dx_elem32 = ((dx - dx32).abs() / (1e-5 + 1e-4 * dx32.abs())).max().item()
+                    da_elem32 = ((da - da32).abs() / (1e-5 + 1e-4 * da32.abs())).max().item()
                     p64 = torch.exp(a.double() - m.double()[:, None]) / l.double()[:, None]
                     dx_elem = elementwise_f64(dx, g, p64.transpose(1, 2), rtol=1e-4)
                     del p64
-                    if not (dx_elem <= 1.0 and
-                            torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l))):
-                        raise AssertionError(f"3xTF32 dx {label}: {dx_elem} of JAX's element-wise "
-                                             f"bar, or two calls differ")
+                    da_elem, da_derived = da_f32_ratios(da, x, a, g, m, l, out)
+                    plain_elem, plain_derived = da_f32_ratios(da32, x, a, g, m, l, out)
+                    if not (dx_elem <= 1.0 and da_derived <= 1.0 and
+                            torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)) and
+                            torch.equal(da, psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out))):
+                        raise AssertionError(f"3xTF32 {label}: dx {dx_elem} of JAX's element-wise "
+                                             f"bar, da {da_derived} of its derived bar, or two "
+                                             "calls differ")
                 else:  # one bf16 ulp of max|plain|, against plain rounded to bf16
                     want_dx, want_da = dx32.to(dt).float(), da32.to(dt).float()
+                    fwant_dx, fwant_da = fdx32.to(dt).float(), fda32.to(dt).float()
                     bar_dx = bf16_ulp(dx32.abs().max().item())
                     bar_da = bf16_ulp(da32.abs().max().item())
                     dx_ratio = ((dx.float() - dx32).abs() / dx_bars(a, g, m, l, dx32)).max().item()
                     da_ratio = ((da.float() - da32).abs()
                                 / da_bars(x, a, g, m, l, da32)).max().item()
+                    route_ratio = max(
+                        ((fdx.float() - fdx32).abs() / dx_bars(a, g, fm, fl, fdx32)).max().item(),
+                        ((fda.float() - fda32).abs() / da_bars(x, a, g, fm, fl, fda32)).max().item())
                     if not (dx_ratio <= 1.0 and da_ratio <= 1.0):
                         raise AssertionError(f"tensor-core {label}: dx at {dx_ratio}, da at "
                                              f"{da_ratio} of their bars")
@@ -710,51 +770,59 @@ def phase_psa_backward(dev):
                         "dx": (dx.float() - (dx32 if bf16 else want_dx)).abs().max().item(),
                         "simt_da": (sda.float() - want_da).abs().max().item(),
                         "simt_dx": (sdx.float() - want_dx).abs().max().item(),
-                        "flash_da": (fda.float() - want_da).abs().max().item(),
-                        "flash_dx": (fdx.float() - want_dx).abs().max().item()}
-                del dx32, da32, want_dx, want_da
-                bars = {"simt_da": bar_da, "simt_dx": bar_dx, "flash_da": bar_da,
-                        "flash_dx": bar_dx}
-                if any(errs[k] > bars[k] for k in bars) or max(dx_ratio, da_ratio) > 1.0:
-                    raise AssertionError(f"psa backward {label} {dt}: errors {errs}, bars {bars}")
-                if not (da.dtype == fda.dtype == dx.dtype == fdx.dtype == dt):
+                        "route_da": (fda.float() - fda32).abs().max().item(),
+                        "route_dx": (fdx.float() - fdx32).abs().max().item(),
+                        "simt_flash_da": (sfda.float() - fwant_da).abs().max().item(),
+                        "simt_flash_dx": (sfdx.float() - fwant_dx).abs().max().item()}
+                del dx32, da32, want_dx, want_da, fdx32, fda32, fwant_dx, fwant_da
+                bars = {"simt_da": bar_da, "simt_dx": bar_dx, "simt_flash_da": bar_da,
+                        "simt_flash_dx": bar_dx}
+                if (any(errs[k] > bars[k] for k in bars)
+                        or max(dx_ratio, da_ratio, route_ratio) > 1.0):
+                    raise AssertionError(f"psa backward {label} {dt}: errors {errs}, bars {bars}, "
+                                         f"route at {route_ratio} of its bars")
+                if not all(t.dtype == dt for t in (da, dx, fda, fdx, sda, sdx, sfda, sfdx)):
                     raise AssertionError("backward kernels did not return the primal dtypes")
                 ms_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out))
-                ms_sda = (cuda_ms(lambda: psa._bwd_da_simt(x, a, g, m, l, out, 1.0)) if bf16
-                          else ms_da)
+                ms_sda = cuda_ms(lambda: psa._bwd_da_simt(x, a, g, m, l, out, 1.0))
                 ms_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l))
                 ms_sdx = cuda_ms(lambda: psa._bwd_dx_simt(x, a, g, m, l, 1.0))
                 ms_f = cuda_ms(lambda: psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout))
+                ms_sf = cuda_ms(lambda: psa._flash_bwd_simt(x, a, g, fm, fl, fout, 1.0))
                 plain_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out))
                 plain_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l))
-                del da, dx, sda, sdx, fda, fdx
+                del da, dx, sda, sdx, fda, fdx, sfda, sfdx
             xr, ar = x.detach().requires_grad_(), a.detach().requires_grad_()
             o = psa.psa_softmax_bmm_reference(xr, ar)
             autograd_ms = cuda_ms(lambda: torch.autograd.grad(o, (xr, ar), g, retain_graph=True))
             del o, xr, ar
             gflop = 2 * n * c * hw * hw / 1e9
             dname = "bf16" if bf16 else "f32"
+            kind = "tensor-core" if bf16 else "3xTF32"
             dx_bound, dx_by = psa_dx_bound(n, c, hw, dt)
             da_bound, da_by = psa_da_bound(n, c, hw, dt)
             log(f"[12 psa backward] {label} (N,C,hw)=({n},{c},{hw}) {dname}: errors "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                 + f" (bars da {bar_da:.3e}, dx {bar_dx:.3e}; da at {da_ratio:.3f}, dx at "
-                f"{dx_ratio:.3f} of their bars"
+                f"{dx_ratio:.3f}, the flash route at {route_ratio:.3f} of their bars"
                 + (f"; 1e-2 license ratio tensor-core dx {lic['tensor-core']:.3f}, SIMT dx "
                    f"{lic['SIMT']:.3f}, the TPU kernel's rounding {lic['TPU model']:.3f}" if bf16
-                   else f"; 3xTF32 dx at {dx_elem:.3f} of JAX's 1e-4/1e-5 element-wise against "
-                   f"f64, {dx_elem32:.3f} against the f32 plain") + "); "
-                f"da ({'tensor-core' if bf16 else 'SIMT'}) {ms_da:.4f} ms "
+                   else f"; 3xTF32 dx at {dx_elem:.3f} and da at {da_elem:.3f} of JAX's 1e-4/1e-5 "
+                   f"element-wise against f64, {dx_elem32:.3f} and {da_elem32:.3f} against the "
+                   f"f32 plain; da at {da_derived:.3f} of its derived bar (gated), the f32 plain "
+                   f"da at {plain_elem:.3f} of JAX's and {plain_derived:.3f} of the derived") + "); "
+                f"da ({kind}) {ms_da:.4f} ms "
                 f"({gflop / ms_da:.1f} TFLOP/s; bound {da_bound:.4f} by {da_by})"
-                + (f", SIMT da {ms_sda:.4f} ms ({gflop / ms_sda:.1f})" if bf16 else "")
-                + f", dx ({'tensor-core' if bf16 else '3xTF32'}) {ms_dx:.4f} ms "
+                + f", SIMT da {ms_sda:.4f} ms ({gflop / ms_sda:.1f})"
+                + f", dx ({kind}) {ms_dx:.4f} ms "
                 f"({gflop / ms_dx:.1f}; bound {dx_bound:.4f} by {dx_by})"
                 + f", SIMT dx {ms_sdx:.4f} ms ({gflop / ms_sdx:.1f})"
-                + f", flash bwd {ms_f:.4f} ms ({2 * gflop / ms_f:.1f}); plain da {plain_da:.4f}, "
-                f"dx {plain_dx:.4f}, da+dx {plain_da + plain_dx:.4f} ms; autograd of the plain "
-                f"forward {autograd_ms:.4f} ms")
+                + f", flash bwd route ({kind} dx + da) {ms_f:.4f} ms ({2 * gflop / ms_f:.1f}), "
+                f"fused SIMT flash bwd {ms_sf:.4f} ms ({2 * gflop / ms_sf:.1f}); plain da "
+                f"{plain_da:.4f}, dx {plain_dx:.4f}, da+dx {plain_da + plain_dx:.4f} ms; autograd "
+                f"of the plain forward {autograd_ms:.4f} ms")
             results[(label, dname)] = dict(errs=errs, ms_da=ms_da, ms_sda=ms_sda, ms_dx=ms_dx,
-                                           ms_sdx=ms_sdx, da_ratio=da_ratio,
+                                           ms_sdx=ms_sdx, da_ratio=da_ratio, ms_sf=ms_sf,
                                            ms_f=ms_f, plain_da=plain_da, plain_dx=plain_dx,
                                            autograd_ms=autograd_ms, dx_bound=(dx_bound, dx_by),
                                            da_bound=(da_bound, da_by))
@@ -799,11 +867,14 @@ def train_cfg(root, batch_size):
 
 
 # Per train step, two directions: bf16 runs the tensor-core forward, da and
-# dx, f32 the 3xTF32 forward and dx and the SIMT da.
+# dx, f32 the 3xTF32 forward, da and dx; f32 at shrink 1 the flash forward
+# and the flash backward's route, which launches the 3xTF32 dx and da.
 TRAIN_STEP = dict(psa_softmax_bmm_wgmma=2, psa_softmax_bmm_bwd_da_wgmma=2,
                   psa_softmax_bmm_bwd_dx_wgmma=2)
-F32_TRAIN_STEP = dict(psa_softmax_bmm_tf32x3=2, psa_softmax_bmm_bwd_da=2,
+F32_TRAIN_STEP = dict(psa_softmax_bmm_tf32x3=2, psa_softmax_bmm_bwd_da_tf32x3=2,
                       psa_softmax_bmm_bwd_dx_tf32x3=2)
+SHRINK1_TRAIN_STEP = dict(psa_softmax_bmm_flash=2, psa_softmax_bmm_flash_bwd=2,
+                          psa_softmax_bmm_bwd_da_tf32x3=2, psa_softmax_bmm_bwd_dx_tf32x3=2)
 
 
 def phase_train_slice(dev):
@@ -1011,9 +1082,12 @@ def train_grads(model, images, labels, seed=0):
     return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
-def phase_grad_vs_plain(tag, dev, shrink, per_step):
+def phase_grad_vs_plain(tag, dev, shrink, per_step, timed=0):
     """PSANet50 f32 train step at batch 2: the kernels against plain
-    attention, losses and every parameter gradient (phases 16-17)."""
+    attention, losses and every parameter gradient (phases 16-17); then,
+    with ``timed``, the seconds per step (forward and backward, no update;
+    host clock, synchronised) over that many more kernel steps, each
+    launching ``per_step``."""
     from semseg_torch.models.build import build_model
 
     cfg = psanet_cfg(shrink_factor=shrink)
@@ -1031,6 +1105,15 @@ def phase_grad_vs_plain(tag, dev, shrink, per_step):
     seconds = time.perf_counter() - t0
     counts = read_counts()
     check_counts(f"f32 train step shrink {shrink}", counts, launches(**per_step))
+    step_s = None
+    if timed:
+        t0 = time.perf_counter()
+        for i in range(timed):
+            reset_counts()
+            train_grads(model, images, labels)
+            check_counts(f"f32 timed step {i} shrink {shrink}", read_counts(), launches(**per_step))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / timed
     model.load_state_dict(state)
     model.psa.fused_attention = False
     reset_counts()
@@ -1047,7 +1130,8 @@ def phase_grad_vs_plain(tag, dev, shrink, per_step):
         f"batch 2 705x705: kernels vs plain attention loss {loss_k:.6f} vs {loss_p:.6f} "
         f"(rel {loss_rel:.2e}); gradient relative L2 median {np.median(list(rel.values())):.2e}, "
         f"max {rel[worst]:.2e} ({worst}) over {len(rel)} tensors (bar {GRAD_REL}); launches "
-        f"{counts}; kernel step {seconds:.2f} s (first call)")
+        f"{counts}; kernel step {seconds:.2f} s (first call)"
+        + (f", {step_s:.4f} s per step over {timed} more" if timed else ""))
     del model, grads_k, grads_p, state
     torch.cuda.empty_cache()
     return counts
@@ -1215,8 +1299,7 @@ def main():
     psp_train_counts = phase_pspnet_train(dev)
     f32_counts = phase_grad_vs_plain(16, dev, 2, F32_TRAIN_STEP)
     f32_timing = phase_f32_train_timing(dev)
-    shrink1_train_counts = phase_grad_vs_plain(
-        17, dev, 1, dict(psa_softmax_bmm_flash=2, psa_softmax_bmm_flash_bwd=2))
+    shrink1_train_counts = phase_grad_vs_plain(17, dev, 1, SHRINK1_TRAIN_STEP, timed=3)
     phase_psa_module_f32(dev)
 
     loaded = sorted(m for m in sys.modules
@@ -1245,11 +1328,15 @@ def main():
     stitch_bound = bound(4 * 2 * 19 * 89 * 89 * 2 + 4 * 19 * 705 * 705 * 2,
                          20 * 4 * 19 * 705 * 705, torch.float32, products=False)
     f32 = torch.float32
+    # The flash backward at (1, 512, 7921) f32: reads x, A, g, out, m, l,
+    # writes da and dx; da's and dx's products, 4 N C hw^2.
+    flash_bwd_bound = bound(2 * 7921 ** 2 * 4 + 4 * 512 * 7921 * 4, 4 * 512 * 7921 ** 2, f32)
     # (name, source, TPU kernel, launches on the path it serves, error, ms,
     # plain ms, bound): each at the shape and dtype of its main path. The
-    # SIMT resident forward and dx serve no path since the f32 ones run as
-    # 3xTF32: their rows are the comparison launches of phases 4 and 12, at
-    # the f32 path's shape, with the f32 train step's (zero) launches.
+    # SIMT resident forward, da and dx and the fused SIMT flash backward
+    # serve no path: their rows are the comparison launches of phases 4 and
+    # 12, at the f32 path's shape, with that path's (zero) launches. The
+    # flash backward's row is its route, which counts its own calls.
     records = [
         ("upsample_softmax_flip", "semseg_torch/csrc/stitch.cu",
          "semseg_tpu/ops/stitch_pallas.py:131", psa_counts, city["max_abs_err"],
@@ -1269,9 +1356,12 @@ def main():
         ("psa_softmax_bmm_bwd_da_wgmma", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:125", train_counts, bwd16["errs"]["da"],
          bwd16["ms_da"], bwd16["plain_da"], bwd16["da_bound"]),
-        ("psa_softmax_bmm_bwd_da", "semseg_torch/csrc/psa.cu",
+        ("psa_softmax_bmm_bwd_da_tf32x3", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:125", f32_counts, bwd32["errs"]["da"],
          bwd32["ms_da"], bwd32["plain_da"], bwd32["da_bound"]),
+        ("psa_softmax_bmm_bwd_da", "semseg_torch/csrc/psa.cu",
+         "semseg_tpu/ops/psa_pallas.py:125", f32_counts, bwd32["errs"]["simt_da"],
+         bwd32["ms_sda"], bwd32["plain_da"], bwd32["da_bound"]),
         ("psa_softmax_bmm_bwd_dx_wgmma", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:140", train_counts, bwd16["errs"]["dx"],
          bwd16["ms_dx"], bwd16["plain_dx"], bwd16["dx_bound"]),
@@ -1283,13 +1373,18 @@ def main():
          bwd32["ms_sdx"], bwd32["plain_dx"], bwd32["dx_bound"]),
         ("psa_softmax_bmm_flash_bwd", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:383", shrink1_train_counts,
-         max(fbwd["errs"]["flash_da"], fbwd["errs"]["flash_dx"]), fbwd["ms_f"],
-         fbwd["plain_da"] + fbwd["plain_dx"],
-         bound(2 * 7921 ** 2 * 4 + 4 * 512 * 7921 * 4, 4 * 512 * 7921 ** 2, f32)),
+         max(fbwd["errs"]["route_da"], fbwd["errs"]["route_dx"]), fbwd["ms_f"],
+         fbwd["plain_da"] + fbwd["plain_dx"], flash_bwd_bound),
+        ("psa_flash_bwd_simt", "semseg_torch/csrc/psa.cu",
+         "semseg_tpu/ops/psa_pallas.py:383", shrink1_train_counts,
+         max(fbwd["errs"]["simt_flash_da"], fbwd["errs"]["simt_flash_dx"]), fbwd["ms_sf"],
+         fbwd["plain_da"] + fbwd["plain_dx"], flash_bwd_bound),
     ]
-    off_path = ("psa_softmax_bmm", "psa_softmax_bmm_bwd_dx")
+    off_path = ("psa_softmax_bmm", "psa_softmax_bmm_bwd_dx", "psa_softmax_bmm_bwd_da",
+                "psa_flash_bwd_simt")
     if any(c[k] for k in off_path for c in by_path.values()):
-        raise AssertionError(f"the SIMT resident forward or dx ran on a path: {by_path}")
+        raise AssertionError(f"a SIMT resident forward, da or dx, or the fused SIMT flash "
+                             f"backward, ran on a path: {by_path}")
     missing = [k for k, *_, counts, _e, _m, _p, _b in records
                if counts[k] == 0 and k not in off_path]
     if missing:
@@ -1298,8 +1393,8 @@ def main():
     # softmax, or an upsample and a softmax, with a product): library_ms null.
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
-        "launches": counts[k], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "launches": counts[k], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
         "launches_by_path": {p: c[k] for p, c in by_path.items()},
     } for k, src, rep, counts, err, ms, plain_ms, bnd in records]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,16 @@
 // x is [N, C, HW], A is [N, HW, HW] (both bf16 or both f32), out is f32
 // [N, C, HW]. The operand dtype picks the precision, as the TPU kernels'
 // _precision_for does (psa_pallas.py:75-81): the SIMT kernels below do all
-// math in f32 on the CUDA cores (plain FMAs) and serve f32 operands (da) or
-// both dtypes (the flash kernels); for bf16 operands the resident forward,
-// da and dx run on the tensor cores with p (forward, dx) or g (da, dx)
-// rounded to bf16 (psa_wgmma_kernel and psa_da_wgmma_kernel, in the second
-// part of this file); for f32 operands the resident forward and dx run on
-// the tensor cores as 3xTF32 (psa_tf32x3_kernel, the third part).
+// math in f32 on the CUDA cores (plain FMAs) and serve only the flash
+// forward on the paths; for bf16 operands the resident forward, da and dx
+// run on the tensor cores with p (forward, dx) or g (da, dx) rounded to
+// bf16 (psa_wgmma_kernel and psa_da_wgmma_kernel, in the second part of this
+// file); for f32 operands the resident forward and dx run on the tensor
+// cores as 3xTF32 (psa_tf32x3_kernel, the third part), and da too
+// (psa_da_tf32x3_kernel, the fourth part). The flash backward is the
+// tensor-core dx and da of the operands' dtype, launched in turn by the
+// caller from the flash forward's m and l; the fused SIMT flash backward
+// below serves no path.
 //
 // Replaces (semseg_tpu/ops/psa_pallas.py):
 // - semseg_psa_softmax_bmm (resident forward) -> _fwd_kernel (:48): an
@@ -72,12 +76,11 @@
 //   atomics and no C-sized shared memory (any C works).
 // The exps cost HW * HW * ceil(C / 128) per forward launch (x2 for resident)
 // and HW * HW per backward launch, about 1 % of the FMAs at C = 512. Double
-// buffering and wider register tiles are left for later work. Of the
-// resident kernels of this part only da serves f32 operands on the path;
-// the wrappers send the resident forward and dx to the tensor-core kernels
-// for both dtypes (bf16: second part of this file; f32 as 3xTF32: third
-// part). The SIMT resident forward, da and dx stay reachable on either
-// dtype, for comparison only.
+// buffering and wider register tiles are left for later work. Only the
+// flash forward of this part serves a path; the wrappers send the resident
+// forward, da and dx, and the flash backward, to the tensor-core kernels
+// for both dtypes. The SIMT resident forward, da and dx and the SIMT flash
+// backward stay reachable on either dtype, for comparison only.
 //
 // Interface: plain C, bound from Python with ctypes. Every launch goes on
 // the caller's stream, does not synchronise and allocates nothing; the
@@ -535,8 +538,8 @@ psa_flash_bwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
 // - _fwd_kernel (psa_pallas.py:48, pallas_call :95): psa_wgmma_kernel<kMT, false>;
 // - _bwd_dx_kernel (psa_pallas.py:140, pallas_call :197): psa_wgmma_kernel<kMT, true>;
 // - _bwd_da_kernel (psa_pallas.py:125, pallas_call :184): psa_da_wgmma_kernel.
-// f32 operands run the 3xTF32 kernels (forward, dx; third part) and the
-// SIMT da above. This is the TPU kernels' own
+// f32 operands run the 3xTF32 kernels (forward and dx, third part; da,
+// fourth part). This is the TPU kernels' own
 // rule (_precision_for, psa_pallas.py:75-81): f32 operands run at HIGHEST
 // precision; bf16 operands at DEFAULT, one bf16 MXU pass, so p (and g for
 // dx) is rounded to bf16 and the sums are f32. Here that product runs on
@@ -614,6 +617,9 @@ psa_flash_bwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
 //   a warp walks rows of the tile: A read and da written along the rows, 2
 //   bytes a lane (rows of odd hw are 2-byte aligned), coalesced; m, l and
 //   delta loaded once per column; exp as ex2 of an FMA.
+// - Any C and hw: the packs are zero-padded and the store masks padded rows
+//   and columns. The flash backward's route calls it, and the dx kernel, at
+//   hw 7921.
 
 namespace tc {
 
@@ -687,9 +693,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 // Keeps the compiler from moving accumulator accesses across wgmma.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // wgmma shared-memory descriptor of an MN-major, 128-byte-swizzled tile of
@@ -1620,6 +1627,296 @@ int dispatch_tf32x3(const float* src, const float* a, const float* m_in, const f
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 operands: da on the tensor cores as 3xTF32.
+//
+// Replaces, for f32 operands, _bwd_da_kernel (psa_pallas.py:125,
+// pallas_call :184) at HIGHEST precision: dP = x^T g / norm with x and g
+// split into TF32 high parts and remainders, lo*hi + hi*lo + hi*hi into f32
+// sums, then da = p (dP - delta) in the epilogue from the forward's m and l
+// and the caller's delta, written in f32. The flash backward's route calls
+// it too (at hw 7921), so it takes any C and hw.
+//
+// Bound on an H100 SXM at (8, 512, 2025): three TF32 passes of 33.6 GFLOP
+// at 495 TFLOP/s, 0.204 ms; the bytes (A read and da written, 131 MB each
+// at N = 8) take 0.078 ms. Operations.
+//
+// Design. GEMM M = i, N = j, K = c; a block owns 128 source rows x 128
+// query columns and all channels (no split K, no atomics: two calls give
+// bit-identical results); warpgroup w holds rows 64 w .. 64 w + 63 in m64n128
+// tiles (wgmma m64n128k8 .tf32: both operands read once per k8 step for 128
+// columns). One block an SM.
+// - Operands K-major: TF32 wgmma has no transpose bits, and K = c is the
+//   slow axis of x and g [C, HW]. psa_pack_tf32x3_t_kernel transposes them
+//   through shared memory into hi and lo [2][N, HWp, Cp] (channels along
+//   each row), zero-padded (Cp a multiple of 32, HWp of 128), so padded
+//   channels add nothing to dP. A stage of 32 channels is then one 128-byte
+//   row per position: cp.async copies it into the 128-byte swizzle and
+//   desc_sw128 of the forward holds unchanged. Chosen over transposing in
+//   the kernel: each x and g tile is read by HW/128 blocks, so a split in
+//   the kernel would be repeated 16 times at hw 2025, and x's rows at hw
+//   2025 are 8100 bytes, too misaligned for 16-byte copies. The pack reads
+//   67 MB and writes 134 MB at N = 8.
+// - A stage is 64 KB (x hi, x lo, g hi, g lo, 16 KB each); a ring of three,
+//   192 KB, keeps the copies two stages ahead.
+// - Rounded sums: the tensor cores truncate as they accumulate (see the
+//   forward above), so each stage's 12 products start from zero and a
+//   rounded f32 add folds them into the running sum (64 + 64 registers).
+//   Each stage waits for its own products before the fold: a second
+//   accumulator that overlapped stage s's products with stage s - 1's fold
+//   bought nothing (+0.1 % at N = 8, -0.6 % at N = 16, +2.1 % at hw 7921;
+//   a fold is 64 adds a thread beside 12 m64n128 MMAs).
+// - Epilogue, as the bf16 da's but in f32: x^T g through shared memory; a
+//   warp walks rows of the tile, A read and da written along the rows
+//   (4-byte aligned at odd hw), coalesced; m, l and delta loaded once per
+//   column; p = expf(a - m) / l as the plain version forms it, and dP -
+//   delta as one FMA (one rounding fewer where they nearly cancel).
+// Edges: padded rows i and columns j are masked on the store.
+
+constexpr int kTdTile = 128;                // source rows i and query columns j a block
+constexpr int kTdK = 32;                    // channels a stage: one 128-byte row of f32
+constexpr int kTdStages = 3;                // ring of channel stages
+constexpr int kTdPart = kTdTile * kRow;     // hi or lo of one operand's stage, 16 KB
+constexpr int kTdStage = 4 * kTdPart;       // x hi, x lo, g hi, g lo
+constexpr int kTdOutStride = kTdTile + 8;   // f32 epilogue row stride: conflict-free
+constexpr int kTdSmem = 1024 + kTdStages * kTdStage;
+static_assert(kTdSmem <= 232448, "fits in the shared memory of a block");
+static_assert(kTdTile * kTdOutStride * 4 <= kTdStages * kTdStage,
+              "the epilogue staging fits in the ring");
+
+inline int td_cp(int c) { return (c + kTdK - 1) / kTdK * kTdK; }
+inline int td_hwp(int hw) { return (hw + kTdTile - 1) / kTdTile * kTdTile; }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64 x 128] = (acc ? d : 0) + A[64 x 8] B[8 x 128], TF32 operands K-major
+// in shared memory. Thread t of the warpgroup holds d[4 q + 2 h + e] = row
+// 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 q + 2 (t % 4) + e, q < 16.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// src f32 [N, C, HW] -> dst [2][N, HWp, Cp]: the TF32 high parts, then the
+// remainders, transposed (channels along each row), zero outside C x HW.
+// Grid (HWp / 32, Cp / 32, N), block (32, 8): a 32 x 32 tile through shared
+// memory, read along positions and written along channels.
+__global__ void psa_pack_tf32x3_t_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                         int C, int HW, int Cp, int HWp) {
+  __shared__ float t[32][33];
+  const int i0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const long long n = blockIdx.z;
+  const float* s = src + n * C * (long long)HW;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int c = c0 + r, i = i0 + threadIdx.x;
+    t[r][threadIdx.x] = (c < C && i < HW) ? __ldg(s + (long long)c * HW + i) : 0.f;
+  }
+  __syncthreads();
+  const long long part = (long long)gridDim.z * HWp * Cp;
+  float* d = dst + n * HWp * (long long)Cp + c0 + threadIdx.x;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    uint32_t hi, lo;
+    split_tf32(t[threadIdx.x][r], hi, lo);
+    const long long o = (long long)(i0 + r) * Cp;
+    d[o] = __uint_as_float(hi);
+    d[part + o] = __uint_as_float(lo);
+  }
+}
+
+// da[n, i, j] = p (inv_norm sum_c x[c, i] g[c, j] - delta[j]), p = exp(a -
+// m[j]) / l[j], f32. xp and gp are the transposed packs of x and g (hi then
+// lo, [2][N, HWp, Cp] each). Grid (HWp / 128 column tiles, HWp / 128 row
+// tiles, N), 256 threads, kTdSmem bytes of dynamic shared memory.
+__global__ void __launch_bounds__(kThreads, 1)
+psa_da_tf32x3_kernel(const float* __restrict__ xp, const float* __restrict__ gp,
+                     const float* __restrict__ a, const float* __restrict__ m_in,
+                     const float* __restrict__ l_in, const float* __restrict__ delta,
+                     float* __restrict__ da, int HW, int Cp, int HWp, float inv_norm) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = smem_addr(smem);
+  const int j0 = blockIdx.x * kTdTile;
+  const int i0 = blockIdx.y * kTdTile;
+  const long long n = blockIdx.z;
+  const long long part = (long long)gridDim.z * HWp * Cp;
+  const float* xn = xp + (n * HWp + i0) * (long long)Cp;
+  const float* gn = gp + (n * HWp + j0) * (long long)Cp;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+
+  // Stage layout: [x hi, x lo, g hi, g lo][128 positions][32 channels, 128
+  // bytes], each part in the 128-byte swizzle.
+  auto load_stage = [&](int buf, int c0) {
+    const uint32_t base = s0 + buf * kTdStage;
+#pragma unroll
+    for (int u = 0; u < kTdTile * 8 / kThreads; ++u) {
+      const int id = tid + kThreads * u;
+      const int r = id / 8, ch = id % 8;
+      const long long off = (long long)r * Cp + c0 + ch * 4;
+      const uint32_t dst = base + swz(r, ch);
+      cp_async16(dst, xn + off);
+      cp_async16(dst + kTdPart, xn + part + off);
+      cp_async16(dst + 2 * kTdPart, gn + off);
+      cp_async16(dst + 3 * kTdPart, gn + part + off);
+    }
+    cp_async_commit();
+  };
+  // A commit group per stage slot, empty past the last stage.
+  auto load_or_commit = [&](int s, int stages) {
+    if (s < stages) {
+      load_stage(s % kTdStages, s * kTdK);
+    } else {
+      cp_async_commit();
+    }
+  };
+
+  // acc: a stage's products; sum: all stages so far.
+  float acc[64], sum[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = sum[e] = 0.f;
+
+  const int stages = Cp / kTdK;
+  for (int s = 0; s < kTdStages - 1; ++s) load_or_commit(s, stages);
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<kTdStages - 2>();
+    fence_async_shared();
+    __syncthreads();  // stage s is in for all
+    const uint32_t base = s0 + (s % kTdStages) * kTdStage;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kTdK / 8; ++k) {
+      const uint32_t am = base + wg * 64 * kRow + k * 32;
+      const uint64_t ah = desc_sw128(am), al = desc_sw128(am + kTdPart);
+      const uint64_t bh = desc_sw128(base + 2 * kTdPart + k * 32);
+      const uint64_t bl = desc_sw128(base + 3 * kTdPart + k * 32);
+      wgmma_m64n128k8_tf32(acc, al, bh, k);  // small terms first; k = 0 starts from 0
+      wgmma_m64n128k8_tf32(acc, ah, bl, 1);
+      wgmma_m64n128k8_tf32(acc, ah, bh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncthreads();  // every warpgroup is done with stage s's buffer
+    load_or_commit(s + kTdStages - 1, stages);
+    fence_regs(acc);
+#pragma unroll
+    for (int e = 0; e < 64; ++e) sum[e] += acc[e];
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it becomes the epilogue's staging
+
+  // x^T g tile -> shared [128 i][kTdOutStride] f32.
+  float* so = reinterpret_cast<float*>(smem);
+  {
+    const int warp = (tid % 128) / 32;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wg * 64 + warp * 16 + lane / 4 + 8 * h;
+        const int col = 8 * q + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(so + row * kTdOutStride + col) =
+            make_float2(sum[4 * q + 2 * h], sum[4 * q + 2 * h + 1]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // A warp walks rows i; lane takes columns j0 + lane + 32 k, so A is read
+  // and da written along the rows, coalesced.
+  float cm[4], cl[4], cd[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = j0 + lane + 32 * k;
+    const bool in = j < HW;
+    cm[k] = in ? __ldg(m_in + n * HW + j) : 0.f;
+    cl[k] = in ? __ldg(l_in + n * HW + j) : 1.f;
+    cd[k] = in ? __ldg(delta + n * HW + j) : 0.f;
+  }
+  const int warp = tid / 32;
+  constexpr int kRows = 4;  // rows a warp loads at once: 16 loads in flight a thread
+  for (int r0 = warp; r0 < kTdTile; r0 += kRows * (kThreads / 32)) {
+    float av[kRows][4];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = i0 + r0 + r * (kThreads / 32);
+      const long long off = (n * HW + i) * (long long)HW + j0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = j0 + lane + 32 * k;
+        av[r][k] = (i < HW && j < HW) ? __ldg(a + off + lane + 32 * k) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = r0 + r * (kThreads / 32);
+      const int i = i0 + row;
+      const long long off = (n * HW + i) * (long long)HW + j0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = lane + 32 * k;
+        if (i < HW && j0 + col < HW) {
+          const float p = expf(av[r][k] - cm[k]) / cl[k];
+          da[off + col] = p * fmaf(so[row * kTdOutStride + col], inv_norm, -cd[k]);
+        }
+      }
+    }
+  }
+}
+
+// Floats of the 3xTF32 da's packs: x, then g, each [2][N, HWp, Cp].
+inline long long td_pack_elems(int n, int c, int hw) {
+  return 4LL * n * td_hwp(hw) * td_cp(c);
+}
+
+int launch_da_tf32x3(const float* x, const float* g, const float* a, const float* m,
+                     const float* l, const float* delta, float* da, float* pack, int n, int c,
+                     int hw, float inv_norm, cudaStream_t s) {
+  if (n == 0 || hw == 0) return 0;
+  const int cp = td_cp(c), hwp = td_hwp(hw);
+  float* xpk = pack;
+  float* gpk = pack + 2LL * n * hwp * cp;
+  if (cp > 0) {
+    const dim3 grid(hwp / 32, cp / 32, n), block(32, 8);
+    psa_pack_tf32x3_t_kernel<<<grid, block, 0, s>>>(x, xpk, c, hw, cp, hwp);
+    psa_pack_tf32x3_t_kernel<<<grid, block, 0, s>>>(g, gpk, c, hw, cp, hwp);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(psa_da_tf32x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kTdSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(hwp / kTdTile, hwp / kTdTile, n);
+  psa_da_tf32x3_kernel<<<grid, kThreads, kTdSmem, s>>>(xpk, gpk, a, m, l, delta, da, hw, cp,
+                                                       hwp, inv_norm);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 template <bool kFlash>
@@ -1773,4 +2070,18 @@ extern "C" int semseg_psa_bwd_dx_tf32x3(const void* a, const void* g, const void
   return tc::dispatch_tf32x3<true>((const float*)g, (const float*)a, (const float*)m,
                                    (const float*)l, (float*)dx, nullptr, nullptr,
                                    (float*)gpack, n, c, hw, inv_norm, stream);
+}
+
+// Floats of the 3xTF32 da's transposed packs (hi and lo of x, then of g).
+extern "C" long long semseg_psa_da_tf32x3_pack_elems(int n, int c, int hw) {
+  return tc::td_pack_elems(n, c, hw);
+}
+
+extern "C" int semseg_psa_bwd_da_tf32x3(const void* x, const void* g, const void* a,
+                                        const void* m, const void* l, const void* delta,
+                                        void* da, void* pack, int n, int c, int hw,
+                                        float inv_norm, void* stream) {
+  return tc::launch_da_tf32x3((const float*)x, (const float*)g, (const float*)a,
+                              (const float*)m, (const float*)l, (const float*)delta, (float*)da,
+                              (float*)pack, n, c, hw, inv_norm, (cudaStream_t)stream);
 }

@@ -15,7 +15,7 @@ float32 FMAs on the CUDA cores); bfloat16 operands may run the product at
 DEFAULT precision, one bf16 pass with ``p`` (and ``g`` in the backward)
 rounded to bfloat16 and float32 sums.
 
-Ten kernels in ``csrc/psa.cu``. Forward, picked by
+Eleven kernels in ``csrc/psa.cu``. Forward, picked by
 :func:`select_psa_kernel`:
 - **resident** (:func:`psa_softmax_bmm`): all source rows per query
   tile, one pass with an online softmax, on the tensor cores: float32
@@ -28,16 +28,19 @@ Ten kernels in ``csrc/psa.cu``. Forward, picked by
 Backward, from the forward's ``m``, ``l`` and output (p is recomputed as
 ``exp(A - m) / l``; the softmax VJP's column term comes from the flash
 identity ``sum_i p * dP = sum_c g * out``):
-- resident: :func:`psa_softmax_bmm_bwd_da` (float32 operands: the SIMT
-  kernel; bfloat16: :func:`psa_softmax_bmm_bwd_da_wgmma`) and
-  :func:`psa_softmax_bmm_bwd_dx` (float32: :func:`psa_softmax_bmm_bwd_dx_tf32x3`;
-  bfloat16: :func:`psa_softmax_bmm_bwd_dx_wgmma`);
-- flash: :func:`psa_softmax_bmm_flash_bwd`, both gradients in one launch.
+- resident: :func:`psa_softmax_bmm_bwd_da` (float32 operands:
+  :func:`psa_softmax_bmm_bwd_da_tf32x3`; bfloat16:
+  :func:`psa_softmax_bmm_bwd_da_wgmma`) and :func:`psa_softmax_bmm_bwd_dx`
+  (float32: :func:`psa_softmax_bmm_bwd_dx_tf32x3`; bfloat16:
+  :func:`psa_softmax_bmm_bwd_dx_wgmma`), all on the tensor cores;
+- flash: :func:`psa_softmax_bmm_flash_bwd`, the same dx and da kernels
+  launched in turn from the flash forward's ``m`` and ``l``.
 The dtype rule is a rule, not a fallback: if a kernel does not build or a
-launch fails, the call raises. No call reaches the SIMT resident forward or
-dx kernel, nor a bf16 call the SIMT da, through these entry points
-(``_forward_simt``, ``_bwd_da_simt`` and ``_bwd_dx_simt`` launch them, for
-comparison only).
+launch fails, the call raises. No call reaches the SIMT resident forward,
+da or dx kernel, nor the fused SIMT flash backward, through these entry
+points (``_forward_simt``, ``_bwd_da_simt``, ``_bwd_dx_simt`` and
+``_flash_bwd_simt`` launch them, for comparison only; the last counts in
+``_flash_bwd_simt.launches``).
 
 :func:`psa_softmax_bmm` and :func:`psa_softmax_bmm_flash` are
 differentiable: while grad is enabled and an input requires it, they run
@@ -152,6 +155,15 @@ def psa_softmax_bmm_bwd_da_bf16_reference(x, a, g, m, l, out, norm: float = 1.0)
     return (_probs(a, m, l) * (dp - _delta(g, out)[:, None, :])).to(torch.bfloat16)
 
 
+def psa_softmax_bmm_bwd_da_tf32x3_reference(x, a, g, m, l, out, norm: float = 1.0):
+    """Plain version of the 3xTF32 da: ``x`` and ``g`` split into TF32 high
+    parts and remainders, ``dP = x^T g / norm`` as ``lo hi + hi lo + hi hi``
+    in float32, then ``da = p * (dP - delta)`` with ``p = exp(a - m) / l``
+    and ``delta = sum_c g * out`` in float32, returned in ``a``'s dtype."""
+    dp = _tf32x3_bmm(x.float().transpose(1, 2), g.float()) / norm
+    return (_probs(a, m, l) * (dp - _delta(g, out)[:, None, :])).to(a.dtype)
+
+
 def psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l, norm: float = 1.0):
     """Plain version of the dx kernels: ``dx = g p^T / norm`` in float32,
     returned in ``x``'s dtype."""
@@ -216,6 +228,7 @@ def _lib():
         "semseg_psa_bwd_da_wgmma": [_P] * 8 + [_I] * 3 + [_F, _P],
         "semseg_psa_softmax_bmm_tf32x3": [_P] * 6 + [_I] * 3 + [_F, _P],
         "semseg_psa_bwd_dx_tf32x3": [_P] * 6 + [_I] * 3 + [_F, _P],
+        "semseg_psa_bwd_da_tf32x3": [_P] * 8 + [_I] * 3 + [_F, _P],
     }
     fns = {}
     for name, argtypes in signatures.items():
@@ -224,7 +237,7 @@ def _lib():
         fn.restype = ctypes.c_int
         fns[name] = fn
     for name in ("semseg_psa_wgmma_pack_elems", "semseg_psa_da_wgmma_pack_elems",
-                 "semseg_psa_tf32x3_pack_elems"):
+                 "semseg_psa_tf32x3_pack_elems", "semseg_psa_da_tf32x3_pack_elems"):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [_I] * 3, ctypes.c_longlong
         fns[name] = fn
@@ -280,7 +293,7 @@ def _needs_grad(x, a) -> bool:
 def _check_bf16(x: torch.Tensor) -> None:
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the bf16 tensor-core kernels take bfloat16 operands, got {x.dtype} "
-                         "(float32 operands run the 3xTF32 kernels and the SIMT da)")
+                         "(float32 operands run the 3xTF32 kernels)")
 
 
 def _check_f32(x: torch.Tensor) -> None:
@@ -476,7 +489,7 @@ def psa_softmax_bmm_flash(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
     ``return_stats``: the column max and the sum of ``exp(a - m)``, float32
     ``[N, HW]`` (forward only, as for :func:`psa_softmax_bmm`). While grad is
     enabled and an input requires it, the call is differentiable through
-    the flash backward kernel. CPU tensors run the plain version; CUDA
+    :func:`psa_softmax_bmm_flash_bwd`. CPU tensors run the plain version; CUDA
     tensors run the kernel and add one to ``psa_softmax_bmm_flash.launches``."""
     if _needs_grad(x, a):
         if return_stats:
@@ -491,21 +504,28 @@ psa_softmax_bmm_flash.launches = 0
 def psa_softmax_bmm_bwd_da(x, a, g, m, l, out, norm: float = 1.0) -> torch.Tensor:
     """Resident backward, ``da = p * (x^T g / norm - sum_c g * out)`` in
     ``a``'s dtype (``psa_pallas.py::_bwd_da_kernel``). CPU tensors run the
-    plain version; float32 CUDA tensors run the SIMT kernel and add one to
-    ``psa_softmax_bmm_bwd_da.launches``; bfloat16 ones the tensor-core
-    kernel (:func:`psa_softmax_bmm_bwd_da_wgmma`)."""
+    plain version; float32 CUDA tensors run the 3xTF32 kernel
+    (:func:`psa_softmax_bmm_bwd_da_tf32x3`), bfloat16 ones the bf16
+    tensor-core kernel (:func:`psa_softmax_bmm_bwd_da_wgmma`).
+    ``psa_softmax_bmm_bwd_da.launches`` counts the SIMT da kernel, which
+    ``_bwd_da_simt`` launches for comparison only."""
     if x.device.type == "cpu":
         return psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out, norm)
     _check_cuda(x, a)
     _check_cuda_f32(x, g=g, m=m, l=l, out=out)
+    return _bwd_da(x, a, g, m, l, out, norm)
+
+
+def _bwd_da(x, a, g, m, l, out, norm):
+    """The tensor-core da of the dtype of checked CUDA operands."""
     if x.dtype == torch.bfloat16:
         return _bwd_da_wgmma(x, a, g, m, l, out, norm)
-    return _bwd_da_simt(x, a, g, m, l, out, norm)
+    return _bwd_da_tf32x3(x, a, g, m, l, out, norm)
 
 
 def _bwd_da_simt(x, a, g, m, l, out, norm):
     """The SIMT da kernel (f32 math) on checked CUDA operands of either
-    dtype."""
+    dtype; off every path, launched for comparison only."""
     n, c, hw = x.shape
     delta = _delta(g, out)
     da = torch.empty_like(a)
@@ -551,6 +571,40 @@ def psa_softmax_bmm_bwd_da_wgmma(x, a, g, m, l, out, norm: float = 1.0) -> torch
 psa_softmax_bmm_bwd_da_wgmma.launches = 0
 
 
+def _bwd_da_tf32x3(x, a, g, m, l, out, norm):
+    """The 3xTF32 da kernel on checked float32 CUDA operands."""
+    n, c, hw = x.shape
+    delta = _delta(g, out)
+    da = torch.empty_like(a)
+    elems = _lib()["semseg_psa_da_tf32x3_pack_elems"](n, c, hw)
+    pack = torch.empty(elems, dtype=torch.float32, device=x.device)
+    _launch("semseg_psa_bwd_da_tf32x3", x, _ptr(x), _ptr(g), _ptr(a), _ptr(m), _ptr(l),
+            _ptr(delta), _ptr(da), _ptr(pack), n, c, hw, 1.0 / norm)
+    psa_softmax_bmm_bwd_da_tf32x3.launches += 1
+    return da
+
+
+def psa_softmax_bmm_bwd_da_tf32x3(x, a, g, m, l, out, norm: float = 1.0) -> torch.Tensor:
+    """Resident da on the tensor cores, for float32 operands: ``x`` and
+    ``g`` each split into a TF32 high part and a TF32 remainder, ``dP = x^T
+    g / norm`` as ``lo hi + hi lo + hi hi`` into float32 sums
+    (``psa_pallas.py::_bwd_da_kernel`` at HIGHEST precision), then ``da = p
+    * (dP - sum_c g * out)`` with ``p = exp(a - m) / l``, returned in
+    float32. CPU tensors run the plain version
+    (:func:`psa_softmax_bmm_bwd_da_tf32x3_reference`); CUDA tensors must be
+    float32, run the kernel and add one to
+    ``psa_softmax_bmm_bwd_da_tf32x3.launches``."""
+    if x.device.type == "cpu":
+        return psa_softmax_bmm_bwd_da_tf32x3_reference(x, a, g, m, l, out, norm)
+    _check_cuda(x, a)
+    _check_cuda_f32(x, g=g, m=m, l=l, out=out)
+    _check_f32(x)
+    return _bwd_da_tf32x3(x, a, g, m, l, out, norm)
+
+
+psa_softmax_bmm_bwd_da_tf32x3.launches = 0
+
+
 def psa_softmax_bmm_bwd_dx(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:
     """Resident backward, ``dx = g p^T / norm`` in ``x``'s dtype
     (``psa_pallas.py::_bwd_dx_kernel``; ``x`` gives the shape and dtype
@@ -563,6 +617,11 @@ def psa_softmax_bmm_bwd_dx(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:
         return psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l, norm)
     _check_cuda(x, a)
     _check_cuda_f32(x, g=g, m=m, l=l)
+    return _bwd_dx(x, a, g, m, l, norm)
+
+
+def _bwd_dx(x, a, g, m, l, norm):
+    """The tensor-core dx of the dtype of checked CUDA operands."""
     if x.dtype == torch.bfloat16:
         return _bwd_dx_wgmma(x, a, g, m, l, norm)
     return _bwd_dx_tf32x3(x, a, g, m, l, norm)
@@ -644,14 +703,31 @@ psa_softmax_bmm_bwd_dx_tf32x3.launches = 0
 
 
 def psa_softmax_bmm_flash_bwd(x, a, g, m, l, out, norm: float = 1.0):
-    """Flash backward, ``(dx, da)`` in one launch
-    (``psa_pallas.py::_flash_bwd_kernel``), in the dtypes of ``x`` and
-    ``a``. CPU tensors run the plain version; CUDA tensors run the kernel and
-    add one to ``psa_softmax_bmm_flash_bwd.launches``."""
+    """Flash backward, ``(dx, da)`` in the dtypes of ``x`` and ``a``
+    (``psa_pallas.py::_flash_bwd_kernel``), from the flash forward's ``m``,
+    ``l`` and output. CPU tensors run the plain version; CUDA tensors run the
+    tensor-core dx and da kernels of their dtype in turn (the counters of
+    :func:`psa_softmax_bmm_bwd_dx_tf32x3` and
+    :func:`psa_softmax_bmm_bwd_da_tf32x3`, or of the ``_wgmma`` pair, move).
+    The TPU kernel fused the two to bound VMEM; on Hopper neither kernel's
+    shared memory depends on ``hw``. Each call on CUDA tensors also adds one
+    to ``psa_softmax_bmm_flash_bwd.launches``."""
     if x.device.type == "cpu":
         return psa_softmax_bmm_bwd_reference(x, a, g, m, l, out, norm)
     _check_cuda(x, a)
     _check_cuda_f32(x, g=g, m=m, l=l, out=out)
+    grads = _bwd_dx(x, a, g, m, l, norm), _bwd_da(x, a, g, m, l, out, norm)
+    psa_softmax_bmm_flash_bwd.launches += 1
+    return grads
+
+
+psa_softmax_bmm_flash_bwd.launches = 0
+
+
+def _flash_bwd_simt(x, a, g, m, l, out, norm):
+    """The fused SIMT flash backward (f32 math) on checked CUDA operands of
+    either dtype; off every path, launched for comparison only. Counts in
+    ``_flash_bwd_simt.launches``."""
     n, c, hw = x.shape
     delta = _delta(g, out)
     da = torch.empty_like(a)
@@ -659,11 +735,11 @@ def psa_softmax_bmm_flash_bwd(x, a, g, m, l, out, norm: float = 1.0):
     _launch("semseg_psa_flash_bwd", x, _ptr(x), _ptr(a), _ptr(g), _ptr(m), _ptr(l),
             _ptr(delta), _ptr(da), _ptr(dx), n, c, hw, 1.0 / norm,
             int(x.dtype == torch.bfloat16))
-    psa_softmax_bmm_flash_bwd.launches += 1
+    _flash_bwd_simt.launches += 1
     return dx.to(x.dtype), da
 
 
-psa_softmax_bmm_flash_bwd.launches = 0
+_flash_bwd_simt.launches = 0
 
 
 def psa_softmax_bmm_auto(x: torch.Tensor, a: torch.Tensor,

@@ -336,23 +336,25 @@ def test_tf32x3_kernels_match_plain(cuda, n, c, hw):
 
 
 def test_f32_entry_points_run_the_tf32x3_kernels(cuda):
-    """float32 operands: the resident forward and dx entry points (and
+    """float32 operands: the resident forward, dx and da entry points (and
     autograd through them) launch the 3xTF32 kernels, never the SIMT
-    resident forward or dx; da stays SIMT."""
+    resident forward, da or dx."""
     g0 = torch.Generator(device=cuda).manual_seed(12)
     x = torch.randn(2, 16, 70, generator=g0, device=cuda).requires_grad_()
     a = (torch.randn(2, 70, 70, generator=g0, device=cuda) * 3).requires_grad_()
     g = torch.randn(2, 16, 70, generator=g0, device=cuda)
     counters = (psa.psa_softmax_bmm_tf32x3, psa.psa_softmax_bmm_bwd_dx_tf32x3,
-                psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm, psa.psa_softmax_bmm_bwd_dx,
-                psa.psa_softmax_bmm_wgmma, psa.psa_softmax_bmm_bwd_dx_wgmma)
+                psa.psa_softmax_bmm_bwd_da_tf32x3, psa.psa_softmax_bmm, psa.psa_softmax_bmm_bwd_da,
+                psa.psa_softmax_bmm_bwd_dx, psa.psa_softmax_bmm_wgmma,
+                psa.psa_softmax_bmm_bwd_dx_wgmma, psa.psa_softmax_bmm_bwd_da_wgmma)
     before = [f.launches for f in counters]
     torch.autograd.grad(psa.psa_softmax_bmm(x, a, 1.3), (x, a), g)
     with torch.no_grad():
-        _, m, l = psa.psa_softmax_bmm(x, a, 1.3, return_stats=True)
+        out, m, l = psa.psa_softmax_bmm(x, a, 1.3, return_stats=True)
         psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3)
+        psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1, 0, 0, 0, 0]
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2, 0, 0, 0, 0, 0, 0]
 
 
 def test_tf32x3_kernels_reject_what_they_do_not_take(cuda):
@@ -365,6 +367,12 @@ def test_tf32x3_kernels_reject_what_they_do_not_take(cuda):
         psa.psa_softmax_bmm_tf32x3(xb, ab)  # bf16 operands run the bf16 tensor-core kernels
     with pytest.raises(ValueError, match="float32"):
         psa.psa_softmax_bmm_bwd_dx_tf32x3(xb, ab, g, m, l)
+    with pytest.raises(ValueError, match="float32"):
+        psa.psa_softmax_bmm_bwd_da_tf32x3(xb, ab, g, m, l, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        psa.psa_softmax_bmm_bwd_da_tf32x3(x, a.transpose(1, 2), g, m, l, g)
+    with pytest.raises(ValueError, match="float32"):
+        psa.psa_softmax_bmm_bwd_da_tf32x3(x, a, g, m, l, g.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         psa.psa_softmax_bmm_tf32x3(x, a.transpose(1, 2))
     with pytest.raises(ValueError, match="contiguous"):
@@ -374,23 +382,67 @@ def test_tf32x3_kernels_reject_what_they_do_not_take(cuda):
         psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g.to(torch.bfloat16), m, l)
     assert psa.psa_softmax_bmm_tf32x3(x, a).shape == (1, 4, 9)
     assert psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g, m, l).dtype == torch.float32
+    assert psa.psa_softmax_bmm_bwd_da_tf32x3(x, a, g, m, l, g).dtype == torch.float32
 
 
-def test_f32_da_runs_the_simt_kernel(cuda):
-    """float32 operands keep the SIMT da: its counter moves, the
-    tensor-core one does not."""
-    g0 = torch.Generator(device=cuda).manual_seed(9)
-    x = torch.randn(2, 16, 70, generator=g0, device=cuda)
-    a = torch.randn(2, 70, 70, generator=g0, device=cuda) * 3
-    g = torch.randn(2, 16, 70, generator=g0, device=cuda)
-    out, m, l = psa.psa_softmax_bmm(x, a, 1.3, return_stats=True)
-    before = (psa.psa_softmax_bmm_bwd_da.launches, psa.psa_softmax_bmm_bwd_da_wgmma.launches)
-    da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
-    assert (psa.psa_softmax_bmm_bwd_da.launches,
-            psa.psa_softmax_bmm_bwd_da_wgmma.launches) == (before[0] + 1, before[1])
-    want = psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out, 1.3)
-    assert da.dtype == torch.float32
-    assert (da - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+def _da_f32_bars(x, a, g, m, l, out, norm):
+    """``(want64, bar)``: the f32 da's float64 value and its bar, element
+    by element:
+
+        |kernel - want64| <= 1e-4 |want64| + 1e-5
+                             + 2 p 2^-24 (|x|^T |g| / norm + sum_c |g out|).
+
+    want64 = p (x^T g / norm - delta) in float64 (p from the same m and l,
+    delta = sum_c g out from the same f32 forward output). The first two
+    terms are the JAX package's f32 VJP bar (``tests/test_psa_pallas.py``).
+    It sits at f32's own floor for da: where p is near 1 and dP ~ delta,
+    |da| ~ 0 and the atol alone is left, while dP and delta are f32 sums of
+    C terms, each rounding up to 2^-24 times the sum of the magnitudes; the
+    plain f32 da takes up to 2.4 of that bar at (8, 512, 2025) on the card.
+    The third term allows two such roundings of each sum, scaled by p. One
+    TF32 pass (2^-11 per operand) fails it by far."""
+    p64 = torch.exp(a.double() - m.double()[:, None]) / l.double()[:, None]
+    d64 = (g.double() * out.double()).sum(1)
+    want64 = p64 * (torch.bmm(x.double().transpose(1, 2), g.double()) / norm - d64[:, None])
+    mag = (torch.bmm(x.double().abs().transpose(1, 2), g.double().abs()) / norm
+           + (g.double() * out.double()).abs().sum(1)[:, None])
+    return want64, 1e-4 * want64.abs() + 1e-5 + 2.0 * 2.0 ** -24 * p64 * mag
+
+
+@pytest.mark.parametrize("n,c,hw", [
+    (2, 16, 70),      # one channel stage, one ragged tile
+    (1, 130, 97),     # five stages, the last ragged
+    (3, 16, 200),     # two tiles each way
+    (8, 512, 2025),   # Cityscapes PSANet (an f32 train step at batch 8)
+])
+def test_f32_da_runs_the_tf32x3_kernel(cuda, n, c, hw):
+    """float32 operands run da on the tensor cores as 3xTF32: its counter
+    moves, the SIMT and bf16 ones do not; within 1e-4 * max|plain| + 1e-5
+    of the plain f32 da and of its own plain version; element by element
+    within ``_da_f32_bars`` against float64, which a single TF32 pass
+    (x and g rounded to TF32, f32 sums) fails; two calls bit-identical."""
+    g0 = torch.Generator(device=cuda).manual_seed(hw + 9)
+    x = torch.randn(n, c, hw, generator=g0, device=cuda)
+    a = torch.randn(n, hw, hw, generator=g0, device=cuda) * 3
+    g = torch.randn(n, c, hw, generator=g0, device=cuda)
+    with torch.no_grad():
+        out, m, l = psa.psa_softmax_bmm(x, a, 1.3, return_stats=True)
+        counters = (psa.psa_softmax_bmm_bwd_da_tf32x3, psa.psa_softmax_bmm_bwd_da,
+                    psa.psa_softmax_bmm_bwd_da_wgmma)
+        before = [f.launches for f in counters]
+        da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0]
+        assert da.dtype == torch.float32 and da.shape == a.shape
+        for want in (psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out, 1.3),
+                     psa.psa_softmax_bmm_bwd_da_tf32x3_reference(x, a, g, m, l, out, 1.3)):
+            assert (da - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+        want64, bar = _da_f32_bars(x, a, g, m, l, out, 1.3)
+        assert ((da.double() - want64).abs() <= bar).all()
+        one_pass = psa.psa_softmax_bmm_bwd_da_reference(psa.tf32_split(x)[0], a,
+                                                         psa.tf32_split(g)[0], m, l, out, 1.3)
+        assert not ((one_pass.double() - want64).abs() <= bar).all()
+        assert torch.equal(da, psa.psa_softmax_bmm_bwd_da_tf32x3(x, a, g, m, l, out, 1.3))
 
 
 def test_psa_kernels_reject_what_they_do_not_take(cuda):
@@ -473,7 +525,11 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
     bf16, but bf16 da and dx, which run on the tensor cores, against the f32
     ones within ``_da_bars`` and ``_dx_bars``), from the kernels' own
     forward statistics; grads in the primal dtypes; two calls
-    bit-identical; one launch each."""
+    bit-identical. The flash backward's route is the same tensor-core dx
+    and da from the flash forward's statistics: their counters move twice
+    (resident and route), the route's once, the fused SIMT flash
+    backward's never; the SIMT kernel, launched directly, counts on its own
+    and is still within the old bars."""
     g0 = torch.Generator(device=cuda).manual_seed(hw + 1)
     x = torch.randn(n, c, hw, generator=g0, device=cuda).to(dtype)
     a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(dtype)
@@ -488,50 +544,77 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
         bf16 = dtype == torch.bfloat16
         dx_counter = (psa.psa_softmax_bmm_bwd_dx_wgmma if bf16
                       else psa.psa_softmax_bmm_bwd_dx_tf32x3)
-        da_counter = psa.psa_softmax_bmm_bwd_da_wgmma if bf16 else psa.psa_softmax_bmm_bwd_da
-        counters = (da_counter, dx_counter, psa.psa_softmax_bmm_flash_bwd)
+        da_counter = (psa.psa_softmax_bmm_bwd_da_wgmma if bf16
+                      else psa.psa_softmax_bmm_bwd_da_tf32x3)
+        counters = (da_counter, dx_counter, psa.psa_softmax_bmm_flash_bwd, psa._flash_bwd_simt,
+                    psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm_bwd_dx)
         before = tuple(f.launches for f in counters)
         da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
         dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3)
         fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout, 1.3)
         torch.cuda.synchronize()
-        assert tuple(f.launches for f in counters) == tuple(b + 1 for b in before)
-        assert da.dtype == fda.dtype == dx.dtype == fdx.dtype == dtype
+        assert tuple(f.launches - b for f, b in zip(counters, before)) == (2, 2, 1, 0, 0, 0)
+        sdx, sda = psa._flash_bwd_simt(x, a, g, fm, fl, fout, 1.3)
+        assert tuple(f.launches - b for f, b in zip(counters, before)) == (2, 2, 1, 1, 0, 0)
+        assert da.dtype == fda.dtype == dx.dtype == fdx.dtype == sda.dtype == sdx.dtype == dtype
         want_dx, want_da = (dx32, da32) if dtype == torch.float32 else (
             dx32.to(dtype).float(), da32.to(dtype).float())
         bar_dx, bar_da = _bwd_bars(dtype, dx32, da32)
         if bf16:
             assert ((dx.float() - dx32).abs() <= _dx_bars(a, g, m, l, dx32, 1.3)).all()
+            assert ((fdx.float() - dx32).abs() <= _dx_bars(a, g, fm, fl, dx32, 1.3)).all()
             # the bar holds da to the plain da from the same forward output
-            da32 = psa.psa_softmax_bmm_bwd_da_reference(x.float(), a.float(), g, m, l, out, 1.3)
-            assert ((da.float() - da32).abs() <= _da_bars(x, a, g, m, l, da32, 1.3)).all()
+            rda = psa.psa_softmax_bmm_bwd_da_reference(x.float(), a.float(), g, m, l, out, 1.3)
+            assert ((da.float() - rda).abs() <= _da_bars(x, a, g, m, l, rda, 1.3)).all()
+            assert ((fda.float() - da32).abs() <= _da_bars(x, a, g, fm, fl, da32, 1.3)).all()
         else:
-            assert (dx.float() - want_dx).abs().max().item() <= bar_dx
-            assert (da.float() - want_da).abs().max().item() <= bar_da
-        assert (fdx.float() - want_dx).abs().max().item() <= bar_dx
-        assert (fda.float() - want_da).abs().max().item() <= bar_da
+            for gdx, gda in ((dx, da), (fdx, fda)):
+                assert (gdx.float() - want_dx).abs().max().item() <= bar_dx
+                assert (gda.float() - want_da).abs().max().item() <= bar_da
+        assert (sdx.float() - want_dx).abs().max().item() <= bar_dx
+        assert (sda.float() - want_da).abs().max().item() <= bar_da
         assert torch.equal(da, psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3))
         assert torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3))
         again = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout, 1.3)
         assert torch.equal(fdx, again[0]) and torch.equal(fda, again[1])
+        again = psa._flash_bwd_simt(x, a, g, fm, fl, fout, 1.3)
+        assert torch.equal(sdx, again[0]) and torch.equal(sda, again[1])
 
 
-@pytest.mark.parametrize("entry,bwd", [("psa_softmax_bmm", 2), ("psa_softmax_bmm_flash", 1)])
-def test_psa_autograd_on_cuda(cuda, entry, bwd):
-    """Autograd through the kernels: gradients of the plain forward within
-    the f32 bars; the resident path launches da (SIMT) and dx (3xTF32), the
-    flash path its fused backward once."""
+@pytest.mark.parametrize("entry", ["psa_softmax_bmm", "psa_softmax_bmm_flash"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_psa_autograd_on_cuda(cuda, entry, dtype):
+    """Autograd through the kernels: both paths launch the tensor-core da
+    and dx of the dtype once each (the flash path from the flash forward's
+    statistics, through the route, which counts once), never the SIMT da or
+    the fused SIMT flash backward;
+    gradients in the primal dtypes. f32: within the f32 bars of autograd of
+    the plain forward. bf16: within ``_da_bars`` and ``_dx_bars`` of the
+    plain backward from the kernels' own forward output and statistics."""
     fn = getattr(psa, entry)
+    bf16 = dtype == torch.bfloat16
     g0 = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn(2, 64, 150, generator=g0, device=cuda).requires_grad_()
-    a = (torch.randn(2, 150, 150, generator=g0, device=cuda) * 3).requires_grad_()
+    x = torch.randn(2, 64, 150, generator=g0, device=cuda).to(dtype).requires_grad_()
+    a = (torch.randn(2, 150, 150, generator=g0, device=cuda) * 3).to(dtype).requires_grad_()
     g = torch.randn(2, 64, 150, generator=g0, device=cuda)
-    counters = (psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm_bwd_dx_tf32x3,
-                psa.psa_softmax_bmm_flash_bwd)
+    kind = "wgmma" if bf16 else "tf32x3"
+    counters = (getattr(psa, f"psa_softmax_bmm_bwd_da_{kind}"),
+                getattr(psa, f"psa_softmax_bmm_bwd_dx_{kind}"),
+                psa.psa_softmax_bmm_bwd_da, psa._flash_bwd_simt, psa.psa_softmax_bmm_flash_bwd)
     before = [f.launches for f in counters]
     dx, da = torch.autograd.grad(fn(x, a, 2.0), (x, a), g)
-    added = sum(f.launches for f in counters) - sum(before)
-    assert added == bwd
+    route = int(entry == "psa_softmax_bmm_flash")
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0, route]
+    assert dx.dtype == da.dtype == dtype
+    with torch.no_grad():
+        if bf16:
+            x, a = x.detach(), a.detach()
+            out, m, l = fn(x, a, 2.0, return_stats=True)
+            dx32, da32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, m, l, out,
+                                                           2.0)
+            assert ((dx.float() - dx32).abs() <= _dx_bars(a, g, m, l, dx32, 2.0)).all()
+            assert ((da.float() - da32).abs() <= _da_bars(x, a, g, m, l, da32, 2.0)).all()
+            return
     rdx, rda = torch.autograd.grad(psa.psa_softmax_bmm_reference(x, a, 2.0), (x, a), g)
     bar_dx, bar_da = _bwd_bars(torch.float32, rdx, rda)
     assert (dx - rdx).abs().max().item() <= bar_dx

@@ -526,6 +526,77 @@ def test_tf32x3_plain_matches_pallas(n, c, hw, tile_j, norm, passes):
     np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,c,hw,tile_j,norm", [
+    (2, 24, 100, 32, 1.0),
+    (1, 64, 300, 128, 1.3),  # ragged: 300 is no multiple of the kernel's 128 tile
+])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_tf32x3_da_plain_matches_pallas(n, c, hw, tile_j, norm, passes):
+    """The 3xTF32 da's rounding, emulated by its plain version
+    (``psa_softmax_bmm_bwd_da_tf32x3_reference``: x and g split into TF32
+    high parts and remainders, ``lo hi + hi lo + hi hi`` in f32, then p (dP
+    - delta)), against ``jax.vjp`` of the JAX package's f32 Pallas resident
+    kernel in interpret mode (HIGHEST precision) on the same numpy-seeded
+    inputs, at its VJP bars: rtol 1e-4, atol 1e-5. On the CPU the 3xTF32
+    entry point runs this plain version, ``psa_softmax_bmm_bwd_da`` the
+    plain f32 one, and no counter moves. ``passes = 1``: a single TF32 pass
+    (hi hi) fails the same bars."""
+    (jx, ja), (x, a) = _operands(hw + 10, n, c, hw, "f32")
+    g = np.random.RandomState(hw + 11).randn(n, c, hw).astype(np.float32)
+    fwd = lambda xx, aa: jpsa.psa_softmax_bmm(xx, aa, norm, tile_j, True)  # noqa: E731
+    _, pull = jax.vjp(fwd, jx, ja)
+    want_da = np.asarray(pull(jnp.asarray(g))[1])
+
+    gt = torch.from_numpy(g)
+    out = psa.psa_softmax_bmm_reference(x, a, norm)
+    m, l = psa.psa_softmax_stats(a)
+    if passes == 1:
+        xh, gh = psa.tf32_split(x)[0], psa.tf32_split(gt)[0]
+        dp = torch.bmm(xh.transpose(1, 2), gh) / norm
+        one = psa._probs(a, m, l) * (dp - psa._delta(gt, out)[:, None, :])
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(one.numpy(), want_da, rtol=1e-4, atol=1e-5)
+        return
+    counters = (psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm_bwd_da_tf32x3,
+                psa.psa_softmax_bmm_bwd_da_wgmma)
+    before = [f.launches for f in counters]
+    da = psa.psa_softmax_bmm_bwd_da_tf32x3(x, a, gt, m, l, out, norm)
+    entry = psa.psa_softmax_bmm_bwd_da(x, a, gt, m, l, out, norm)
+    assert [f.launches for f in counters] == before  # CPU: plain versions
+    assert da.dtype == entry.dtype == torch.float32
+    torch.testing.assert_close(da, psa.psa_softmax_bmm_bwd_da_tf32x3_reference(
+        x, a, gt, m, l, out, norm), rtol=0, atol=0)
+    torch.testing.assert_close(entry, psa.psa_softmax_bmm_bwd_da_reference(
+        x, a, gt, m, l, out, norm), rtol=0, atol=0)
+    assert not torch.equal(da, entry)  # the emulation does split
+    np.testing.assert_allclose(da.numpy(), want_da, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,c,hw,cap_i,cap_j,norm", [
+    (1, 8, 70, 32, 128, 2.0),   # three source tiles
+    (2, 24, 100, 32, 32, 1.3),  # several tiles on both axes, ragged
+])
+def test_flash_route_plain_matches_pallas(n, c, hw, cap_i, cap_j, norm):
+    """The flash backward's route on f32 operands, the 3xTF32 dx and da,
+    emulated by their plain versions from the flash forward's statistics,
+    against ``jax.vjp`` of the JAX package's Pallas flash kernel in
+    interpret mode (its fused ``_flash_bwd_kernel`` over several tiles), at
+    its VJP bars: rtol 1e-4, atol 1e-5."""
+    (jx, ja), (x, a) = _operands(hw + 12, n, c, hw, "f32")
+    g = np.random.RandomState(hw + 13).randn(n, c, hw).astype(np.float32)
+    fwd = lambda xx, aa: jpsa.psa_softmax_bmm_flash(xx, aa, norm, True, cap_i, cap_j)  # noqa: E731
+    _, pull = jax.vjp(fwd, jx, ja)
+    want_dx, want_da = (np.asarray(v) for v in pull(jnp.asarray(g)))
+
+    gt = torch.from_numpy(g)
+    with torch.no_grad():
+        out, m, l = psa.psa_softmax_bmm_flash(x, a, norm, return_stats=True)
+    dx = psa.psa_softmax_bmm_bwd_dx_tf32x3_reference(x, a, gt, m, l, norm)
+    da = psa.psa_softmax_bmm_bwd_da_tf32x3_reference(x, a, gt, m, l, out, norm)
+    np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(da.numpy(), want_da, rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("entry", ["psa_softmax_bmm", "psa_softmax_bmm_flash"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_entry_points_are_differentiable(entry, dtype):
