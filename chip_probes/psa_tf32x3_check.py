@@ -10,18 +10,18 @@ distance from their own plain versions
 (``*_tf32x3_reference``), whether ``m`` is exact and ``l`` within 1e-5, and
 whether two calls agree bit for bit. Beside it, the element-wise ratio of
 each f32 result (the kernel, the plain f32 version, the 3xTF32 plain
-version, the SIMT kernel) against a float64 plain version: how far f32
+version) against a float64 plain version: how far f32
 arithmetic itself is from the JAX bars at these extents (da's float64
 version takes ``delta`` in float64 too); for da also the ratio against
 ``chip_smoke.py``'s derived bar (``da_f32_ratios``: JAX's bar plus
 ``DA_F32_K`` p 2^-24 (|x|^T |g| / norm + sum_c |g out|)), the least K that
 bar would need for each result, and a single TF32 pass as a contrast that
 must fail it. At (N, 512, 2025) it also times the
-three entry points (operand packs and da's ``delta`` included) and the SIMT
-kernels they replace, and at (1, 512, 7921) the flash backward's route (the
-3xTF32 dx and da) against the fused SIMT flash backward and the plain da +
-dx (CUDA events over 10 back-to-back calls). Faster than ``chip_smoke.py``
-for iterating on the kernels.
+three entry points (operand packs and da's ``delta`` included), and at (1,
+512, 7921) the flash backward's route (the 3xTF32 dx and da) against the
+plain da + dx (CUDA events over 10 back-to-back calls). Faster than
+``chip_smoke.py`` for iterating on the kernels; an older kernel's times
+come from a checkout of its commit.
 
 Usage, from the repository root on a machine with the card:
     python3 chip_probes/psa_tf32x3_check.py
@@ -84,7 +84,6 @@ def check_da(x, a, g, out, m, l, norm):
     d64 = (g.double() * out.double()).sum(1)
     want64 = p64 * (torch.bmm(x.double().transpose(1, 2), g.double()) / norm - d64[:, None])
     results = {"kernel": da, "f32 plain": da32, "3xTF32 plain": demul,
-               "SIMT": psa._bwd_da_simt(x, a, g, m, l, out, norm),
                "one TF32 pass": psa.psa_softmax_bmm_bwd_da_reference(
                    psa.tf32_split(x)[0], a, psa.tf32_split(g)[0], m, l, out, norm)}
     print(f"    da vs f64, of JAX's 1e-4/1e-5: " + elem64(results, want64, 1e-4, 1e-5), flush=True)
@@ -137,8 +136,7 @@ def main():
                   flush=True)
             want64 = torch.bmm(x.double(), torch.softmax(a.double(), dim=1)) / norm
             print(f"    fwd vs f64, of JAX's 1e-5: " + elem64(
-                {"kernel": out, "f32 plain": want, "3xTF32 plain": emul,
-                 "SIMT": psa._forward_simt(x, a, norm, False, False)}, want64, 1e-5, 1e-5),
+                {"kernel": out, "f32 plain": want, "3xTF32 plain": emul}, want64, 1e-5, 1e-5),
                   flush=True)
             del want64
             dx = psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g, m_ref, l_ref, norm)
@@ -154,30 +152,24 @@ def main():
             want64 = torch.bmm(g.double(), p64.transpose(1, 2)) / norm
             del p64
             print(f"    dx vs f64, of JAX's 1e-4/1e-5: " + elem64(
-                {"kernel": dx, "f32 plain": dx32, "3xTF32 plain": demul,
-                 "SIMT": psa._bwd_dx_simt(x, a, g, m_ref, l_ref, norm)}, want64, 1e-4, 1e-5),
+                {"kernel": dx, "f32 plain": dx32, "3xTF32 plain": demul}, want64, 1e-4, 1e-5),
                   flush=True)
             del want64
             check_da(x, a, g, out, m_ref, l_ref, norm)
             if hw == 2025:
                 t_new = ms(lambda: psa.psa_softmax_bmm_tf32x3(x, a, norm))
-                t_old = ms(lambda: psa._forward_simt(x, a, norm, False, False))
                 t_dx = ms(lambda: psa.psa_softmax_bmm_bwd_dx_tf32x3(x, a, g, m_ref, l_ref, norm))
-                t_dx_old = ms(lambda: psa._bwd_dx_simt(x, a, g, m_ref, l_ref, norm))
                 t_da = ms(lambda: psa.psa_softmax_bmm_bwd_da_tf32x3(x, a, g, m_ref, l_ref, out,
                                                                       norm))
-                t_da_old = ms(lambda: psa._bwd_da_simt(x, a, g, m_ref, l_ref, out, norm))
-                print(f"times {(n, c, hw)}: fwd 3xTF32 {t_new:.4f} ms vs SIMT {t_old:.4f}; "
-                      f"dx 3xTF32 {t_dx:.4f} vs SIMT {t_dx_old:.4f}; da 3xTF32 {t_da:.4f} vs "
-                      f"SIMT {t_da_old:.4f}", flush=True)
+                print(f"times {(n, c, hw)}: fwd 3xTF32 {t_new:.4f} ms; dx 3xTF32 {t_dx:.4f}; "
+                      f"da 3xTF32 {t_da:.4f}", flush=True)
             if hw == 7921:
                 t_route = ms(lambda: psa.psa_softmax_bmm_flash_bwd(x, a, g, m_ref, l_ref, out,
                                                                    norm))
-                t_simt = ms(lambda: psa._flash_bwd_simt(x, a, g, m_ref, l_ref, out, norm))
                 t_plain = ms(lambda: psa.psa_softmax_bmm_bwd_reference(x, a, g, m_ref, l_ref, out,
                                                                        norm), reps=3)
-                print(f"times {(n, c, hw)}: flash backward route {t_route:.4f} ms vs fused SIMT "
-                      f"{t_simt:.4f}, plain da + dx {t_plain:.4f}", flush=True)
+                print(f"times {(n, c, hw)}: flash backward route {t_route:.4f} ms, plain da + "
+                      f"dx {t_plain:.4f}", flush=True)
         del x, a, g
         torch.cuda.empty_cache()
     print(f"total {time.perf_counter() - t0:.1f} s")

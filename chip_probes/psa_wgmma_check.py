@@ -5,9 +5,9 @@ da (bf16 operands) at small and Cityscapes shapes, and prints their largest
 error against the plain f32 versions as a share of the element-wise bars
 of ``tests/test_torch_cuda.py`` (da also against its bf16 plain version,
 and two calls compared bit for bit). At (N, 512, 2025) it also times the
-three kernels and the SIMT kernels they replaced (CUDA events over 10
-back-to-back calls of the entry points). Faster than ``chip_smoke.py`` for
-iterating on the kernels.
+three kernels (CUDA events over 10 back-to-back calls of the entry points).
+Faster than ``chip_smoke.py`` for iterating on the kernels; an older
+kernel's times come from a checkout of its commit.
 
 Usage, from the repository root on a machine with the card:
     python3 chip_probes/psa_wgmma_check.py
@@ -92,16 +92,12 @@ def main():
                   f"{same}", flush=True)
             if hw == 2025:
                 t_new = ms(lambda: psa.psa_softmax_bmm_wgmma(x, a, norm))
-                t_old = ms(lambda: psa._forward_simt(x, a, norm, False, False))
                 t_dx = ms(lambda: psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m_ref, l_ref, norm))
-                t_dx_old = ms(lambda: psa._bwd_dx_simt(x, a, g, m_ref, l_ref, norm))
                 t_da = ms(lambda: psa.psa_softmax_bmm_bwd_da_wgmma(x, a, g, m_ref, l_ref, want,
                                                                    norm))
-                t_da_old = ms(lambda: psa._bwd_da_simt(x, a, g, m_ref, l_ref, want, norm))
                 t_delta = ms(lambda: psa._delta(g, want))
-                print(f"times {(n, c, hw)}: fwd wgmma {t_new:.4f} ms vs simt {t_old:.4f}; "
-                      f"dx wgmma {t_dx:.4f} vs simt {t_dx_old:.4f}; da wgmma {t_da:.4f} vs "
-                      f"simt {t_da_old:.4f} (delta alone {t_delta:.4f})", flush=True)
+                print(f"times {(n, c, hw)}: fwd wgmma {t_new:.4f} ms; dx wgmma {t_dx:.4f}; da "
+                      f"wgmma {t_da:.4f} (delta alone {t_delta:.4f})", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s")
     return 0
 

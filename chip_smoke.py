@@ -2,9 +2,10 @@
 
 Drives the port's serving paths and its training path once at full width,
 with seeded random weights, on Cityscapes-size 1024x2048 images: serving
-(single scale, flip TTA, bf16, ``window_batch`` 8) with PSPNet50 on 713x713
-windows and PSANet50 (bi-direction, shrink 2, 89x89 mask) on 705x705
-windows; PSANet50 training (``config/cityscapes/cityscapes_psanet50.yaml``,
+(single scale and the six scales of the reference's multi-scale protocol,
+flip TTA, bf16, ``window_batch`` 8) with PSPNet50 on 713x713 windows and
+PSANet50 (bi-direction, shrink 2, 89x89 mask) on 705x705 windows; PSANet50
+training (``config/cityscapes/cityscapes_psanet50.yaml``,
 bf16, batch 16, 705x705 crops) through ``semseg_torch.train.run`` on a
 seeded synthetic list-file dataset written under ``build/``. The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
@@ -16,18 +17,18 @@ each (12 runs after 4):
 3. stitch kernel vs plain on the card at the Cityscapes and ADE20K shapes
    (max abs diff and row sums within 2e-2), with both times (CUDA events,
    median of 20);
-4. PSA forward kernels vs plain: the resident and the flash kernel against
+4. PSA forward vs plain: the resident and the flash entry points against
    the plain softmax + bmm at (N, C, hw) = (8, 512, 900), (8, 512, 2025),
    (16, 512, 2025) and (1, 512, 7921), bf16 and f32 operands, A = randn *
-   3. The flash kernel: max abs diff <= 1e-4 * max|plain| + 1e-5. f32
-   operands run the resident forward on the tensor cores as 3xTF32: within
-   that bar and element by element within the JAX package's f32 bar, rtol
-   = atol = 1e-5, against a float64 plain version (``elementwise_f64``). bf16 operands run it in one bf16 pass: element by element
-   within 2^-8 (|x| @ p) / norm + 1e-6 (``fwd_bars``) and within rtol =
-   atol = 1e-2. Both tensor-core kernels give bit-identical results in two
-   calls; the SIMT resident kernel they replaced is launched directly beside
-   them and held to 1e-4. ``m`` exact and ``l`` within 1e-5 relative for
-   every kernel; kernel, SIMT, plain times and the bound;
+   3. Both run the tensor-core forward of the dtype. f32 operands run it as
+   3xTF32: within 1e-4 * max|plain| + 1e-5 and element by element within
+   the JAX package's f32 bar, rtol = atol = 1e-5, against a float64 plain
+   version (``elementwise_f64``). bf16 operands run it in one bf16 pass:
+   element by element within 2^-8 (|x| @ p) / norm + 1e-6 (``fwd_bars``)
+   and within rtol = atol = 1e-2. Two resident calls give bit-identical
+   results, and the flash entry point's ``out``, ``m`` and ``l`` are bit
+   for bit the resident's; ``m`` exact and ``l`` within 1e-5 relative;
+   resident, flash and plain times and the bound;
 12. PSA backward kernels vs plain at the same extents: da, dx and the
    flash backward's route (the same tensor-core dx and da from the flash
    forward's statistics) against the plain backward from the same
@@ -39,10 +40,7 @@ each (12 runs after 4):
    bf16 da and dx on the tensor cores element by element within p 2^-8
    (|x|^T |g|) / norm and 2^-7 (|g| @ p^T) / norm, each plus one bf16 ulp
    of |plain| (``da_bars``, ``dx_bars``); the tensor-core da and dx give
-   bit-identical results in two calls; the SIMT da and dx and the fused
-   SIMT flash backward they replaced (launched directly) within
-   1e-4 * max|plain| + 1e-5 (f32) or one bf16 ulp of max|plain| against the
-   plain grads rounded to bf16; kernel, SIMT, plain and plain-autograd
+   bit-identical results in two calls; kernel, plain and plain-autograd
    times and the bounds;
 5. PSPNet slice: ``build_evaluator`` answers requests; each must launch the
    stitch kernel exactly twice (two chunks) and no PSA kernel; images/s;
@@ -57,8 +55,9 @@ each (12 runs after 4):
    off (both sides use the fused stitch): agreement >= 0.995,
    probabilities within 2e-2;
 10. PSANet shrink 1 (f32, mask 177x177, hw 7921): one 705x705 window and
-   its flip launch the flash kernel exactly twice; logits within 1e-3
-   relative of the plain attention;
+   its flip call the flash forward exactly twice, which launches the
+   3xTF32 forward twice; logits within 1e-3 relative of the plain
+   attention;
 11. PSANet f32: one 705x705 window through the 3xTF32 resident kernel on
    the card against the plain version on the CPU, 1e-3 relative;
 13. PSANet50 training slice: 48 street-like 1024x2048 images with label
@@ -78,14 +77,25 @@ each (12 runs after 4):
    ``GRAD_REL``; then the f32 step timed at batch 8 on a device-resident
    batch (2 warm-up, 5 timed steps, the same launches per step): images/s,
    peak memory, and the PSA kernels' share of a profiler window of 2 steps;
-17. the same at shrink 1 (hw 7921): the flash forward and the flash
-   backward's route (its own count, and the 3xTF32 dx and da it launches)
-   twice each; gradients against
+17. the same at shrink 1 (hw 7921): the flash forward's route and the
+   flash backward's route (their own counts, and the 3xTF32 forward, dx
+   and da they launch) twice each; gradients against
    plain attention; seconds per step over 3 more steps;
 18. the PSA module at full width (2048 -> 512, 89x89 input, batch 2),
    f32, eval-mode BN: output and input gradient on the card against the
    CPU within 1e-3 relative, parameter gradients within ``PARAM_REL``; the
-   same with TF32 on must fail those bars (else the check is blind to TF32).
+   same with TF32 on must fail those bars (else the check is blind to TF32);
+19. multi-scale serving, scales 0.5, 0.75, 1.0, 1.25, 1.5, 1.75 (the
+   reference's protocol, named in the configs' TEST section), bf16, flip,
+   ``window_batch`` 8: PSPNet50 (81 windows, 22 chunks a 1024x2048 image)
+   and PSANet50 (84 windows, 23 chunks), one warm-up and 2 timed requests
+   each. Each request must launch the stitch kernel once a chunk and, for
+   PSANet50, the bf16 tensor-core forward twice a chunk (two directions),
+   nothing else; ``predict`` equals the argmax of ``predict_probs`` (but on
+   exact ties of the mean); PSANet50 with ``fused_attention`` off against
+   on: agreement >= 0.995, probabilities within 2e-2; images/s with the
+   card's name and power limit; a ``torch.profiler`` window of one request
+   (idle share, top kernels in ``build/chip_smoke/``).
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -93,10 +103,9 @@ no jax and nothing of the JAX package (the port reads configs and data
 through its own ``semseg_torch.config`` and ``semseg_torch.data``); that is
 checked at the end. The line before the last is the kernels' JSON record
 (each kernel at the shape and dtype of the path it serves, with its bound
-on an H100 SXM; the flash backward's row is its route, the 3xTF32 dx and
-da, counted on its own; the SIMT resident forward, da and dx and the fused
-SIMT flash backward (``psa_flash_bwd_simt``) are off every path, and are
-listed with their comparison times and 0 launches); the last line is
+on an H100 SXM; the flash forward's and the flash backward's rows are
+their routes, the 3xTF32 forward, and the 3xTF32 dx and da, each counted
+on its own); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root.
@@ -163,29 +172,24 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 
 def kernels():
-    """The launch-counting wrappers of every kernel, by name.
-    ``psa_softmax_bmm``, ``psa_softmax_bmm_bwd_da``,
-    ``psa_softmax_bmm_bwd_dx`` and ``psa_flash_bwd_simt`` count the SIMT
-    kernels, which no path launches; the ``_wgmma`` ones the bf16
-    tensor-core kernels and the ``_tf32x3`` ones the 3xTF32 kernels that the
-    same entry points (and the flash backward's route) launch for bf16 and
-    f32 operands; ``psa_softmax_bmm_flash_bwd`` counts the route."""
+    """The launch-counting wrappers of every kernel, by name: the stitch
+    kernel, the ``_wgmma`` bf16 tensor-core kernels and the ``_tf32x3``
+    3xTF32 kernels, which the PSA entry points launch for bf16 and f32
+    operands; ``psa_softmax_bmm_flash`` and ``psa_softmax_bmm_flash_bwd``
+    count the flash forward's and backward's routes (their calls on CUDA
+    tensors), which launch those kernels."""
     from semseg_torch.ops import psa
     from semseg_torch.ops.stitch import upsample_softmax_flip
 
     return {"upsample_softmax_flip": upsample_softmax_flip,
-            "psa_softmax_bmm": psa.psa_softmax_bmm,
             "psa_softmax_bmm_wgmma": psa.psa_softmax_bmm_wgmma,
             "psa_softmax_bmm_tf32x3": psa.psa_softmax_bmm_tf32x3,
             "psa_softmax_bmm_flash": psa.psa_softmax_bmm_flash,
-            "psa_softmax_bmm_bwd_da": psa.psa_softmax_bmm_bwd_da,
             "psa_softmax_bmm_bwd_da_wgmma": psa.psa_softmax_bmm_bwd_da_wgmma,
             "psa_softmax_bmm_bwd_da_tf32x3": psa.psa_softmax_bmm_bwd_da_tf32x3,
-            "psa_softmax_bmm_bwd_dx": psa.psa_softmax_bmm_bwd_dx,
             "psa_softmax_bmm_bwd_dx_wgmma": psa.psa_softmax_bmm_bwd_dx_wgmma,
             "psa_softmax_bmm_bwd_dx_tf32x3": psa.psa_softmax_bmm_bwd_dx_tf32x3,
-            "psa_softmax_bmm_flash_bwd": psa.psa_softmax_bmm_flash_bwd,
-            "psa_flash_bwd_simt": psa._flash_bwd_simt}
+            "psa_softmax_bmm_flash_bwd": psa.psa_softmax_bmm_flash_bwd}
 
 
 def bound(nbytes, flops, dtype, products=True):
@@ -347,14 +351,14 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     log(f"[1 device] {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    smi = "nvidia-smi: absent"
     if shutil.which("nvidia-smi"):
         res = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True)
-        log(res.stdout.strip().splitlines()[0])
-    else:
-        log("nvidia-smi: absent")
-    return name
+        smi = res.stdout.strip().splitlines()[0]
+    log(smi)
+    return name, smi
 
 
 def ptxas_summary(build_log):
@@ -366,11 +370,8 @@ def ptxas_summary(build_log):
         if m:
             mangled = m.group(1)
             k = re.search(r"\d((?:psa|upsample)_[a-z0-9_]*_kernel)", mangled)
-            tc = "wgmma" in mangled or "tf32x3" in mangled
-            flags = (("Lb0E", "fwd"), ("Lb1E", "dx")) if tc else (
-                ("Lb0E", "resident"), ("Lb1E", "flash"))
             tags = [tag for pat, tag in (("13__nv_bfloat16", "bf16"), ("kernelIf", "f32"),
-                                         *flags) if pat in mangled]
+                                         ("Lb0E", "fwd"), ("Lb1E", "dx")) if pat in mangled]
             mt = re.search(r"_kernelILi(\d)E", mangled)
             if mt:
                 tags.insert(0, f"mt{mt.group(1)}")
@@ -433,17 +434,16 @@ def phase_stitch_kernel(dev):
 
 
 def phase_psa_kernels(dev):
-    """The PSA forward kernels against the plain version at the recipe
-    extents (phase 4). f32 operands: the 3xTF32 resident kernel within
-    ``PSA_REL`` and element by element within the JAX package's f32 bar
-    (rtol = atol = 1e-5) against the product in float64
-    (``elementwise_f64``; against the f32 plain version it is printed).
-    bf16 operands: the tensor-core resident kernel
-    within ``fwd_bars``, element by element, and within the JAX package's
-    bf16 license (rtol = atol = 1e-2). For both, the flash kernel and the
-    SIMT resident kernel the tensor-core ones replaced (launched directly)
-    within ``PSA_REL``; ``m`` exact and ``l`` within 1e-5 relative for every
-    kernel that writes them; two tensor-core calls bit-identical."""
+    """The PSA forward entry points against the plain version at the recipe
+    extents (phase 4); both run the tensor-core forward of the dtype. f32
+    operands (3xTF32): within ``PSA_REL`` and element by element within the
+    JAX package's f32 bar (rtol = atol = 1e-5) against the product in
+    float64 (``elementwise_f64``; against the f32 plain version it is
+    printed). bf16 operands: within ``fwd_bars``, element by element, and
+    within the JAX package's bf16 license (rtol = atol = 1e-2). ``m`` exact
+    and ``l`` within 1e-5 relative; two resident calls bit-identical, and
+    the flash entry point's ``out``, ``m`` and ``l`` bit for bit the
+    resident's (one kernel serves both)."""
     from semseg_torch.ops import psa
 
     results = {}
@@ -458,29 +458,25 @@ def phase_psa_kernels(dev):
                 m_ref, l_ref = psa.psa_softmax_stats(a)
                 res, rm, rl = psa.psa_softmax_bmm(x, a, return_stats=True)
                 fl, m, l = psa.psa_softmax_bmm_flash(x, a, return_stats=True)
-                simt = psa._forward_simt(x, a, 1.0, False, False)
                 torch.cuda.synchronize()
                 bar = PSA_REL * want.abs().max().item() + 1e-5
                 err_r = (res - want).abs().max().item()
                 err_f = (fl - want).abs().max().item()
-                err_s = (simt - want).abs().max().item()
-                stats_ok = all(torch.equal(mm, m_ref) for mm in (m, rm)) and all(
-                    ((ll - l_ref).abs() / l_ref).max().item() <= 1e-5 for ll in (l, rl))
-                l_rel = ((l - l_ref).abs() / l_ref).max().item()
+                stats_ok = torch.equal(rm, m_ref) and ((rl - l_ref).abs() / l_ref).max().item() <= 1e-5
+                l_rel = ((rl - l_ref).abs() / l_ref).max().item()
                 lic = 1e-2 if bf16 else 1e-5  # JAX's element-wise rtol = atol
                 elem32 = elem = ((res - want).abs() / (lic + lic * want.abs())).max().item()
                 if not bf16:
                     elem = elementwise_f64(res, x, torch.softmax(a.double(), dim=1))
                 ratio = ((res - want).abs() / fwd_bars(x, a)).max().item() if bf16 else err_r / bar
                 same = torch.equal(res, psa.psa_softmax_bmm(x, a))
-                res_ok = ratio <= 1.0 and elem <= 1.0 and same
-                if not (res_ok and err_f <= bar and err_s <= bar and stats_ok):
+                flash_same = torch.equal(fl, res) and torch.equal(m, rm) and torch.equal(l, rl)
+                if not (ratio <= 1.0 and elem <= 1.0 and same and flash_same and stats_ok):
                     raise AssertionError(
                         f"psa {label} {dt}: resident err {err_r} (of its bar {ratio}, of JAX's "
-                        f"element-wise {elem}, bit-identical {same}), "
-                        f"SIMT err {err_s}, flash err {err_f} (bar {bar}), stats ok {stats_ok}")
+                        f"element-wise {elem}, bit-identical {same}), flash err {err_f} "
+                        f"(bit for bit the resident's {flash_same}), stats ok {stats_ok}")
                 ms_r = cuda_ms(lambda: psa.psa_softmax_bmm(x, a))
-                ms_s = cuda_ms(lambda: psa._forward_simt(x, a, 1.0, False, False))
                 ms_f = cuda_ms(lambda: psa.psa_softmax_bmm_flash(x, a))
                 plain_ms = cuda_ms(lambda: psa.psa_softmax_bmm_reference(x, a))
             gflop = 2 * n * c * hw * hw / 1e9
@@ -492,14 +488,13 @@ def phase_psa_kernels(dev):
                 f"element-wise" + ("" if bf16 else f" against f64, {elem32:.3f} against the f32 "
                                    "plain") + f") {ms_r:.4f} ms "
                 f"({gflop / ms_r:.1f} TFLOP/s; bound {bound_ms:.4f} ms by {bound_by})"
-                f"; SIMT resident err {err_s:.3e} {ms_s:.4f} ms"
-                + f"; flash err {err_f:.3e} {ms_f:.4f} ms ({gflop / ms_f:.1f} TFLOP/s), "
-                f"m exact, l rel {l_rel:.2e} (PSA_REL bar {bar:.3e}); plain {plain_ms:.4f} ms")
-            results[(label, dname)] = dict(err_r=err_r, err_f=err_f, err_s=err_s, ratio=ratio,
-                                           elem=elem,
-                                           ms_r=ms_r, ms_s=ms_s, ms_f=ms_f, plain_ms=plain_ms,
+                f"; flash route ({kind}, out, m and l bit for bit the resident's) {ms_f:.4f} ms "
+                f"({gflop / ms_f:.1f} TFLOP/s), m exact, l rel {l_rel:.2e}; plain "
+                f"{plain_ms:.4f} ms")
+            results[(label, dname)] = dict(err_r=err_r, err_f=err_f, ratio=ratio, elem=elem,
+                                           ms_r=ms_r, ms_f=ms_f, plain_ms=plain_ms,
                                            bound=(bound_ms, bound_by))
-            del x, a, want, res, rm, rl, fl, m, l, m_ref, l_ref, simt
+            del x, a, want, res, rm, rl, fl, m, l, m_ref, l_ref
             torch.cuda.empty_cache()
     return results
 
@@ -641,7 +636,8 @@ def phase_f32(tag, label, cfg, dev, ev, image, per_window):
 
 def phase_shrink1(dev, image):
     """PSANet50 f32 at shrink 1 (mask 177x177, hw 7921): one window and its
-    flip through the flash kernel, against the plain attention."""
+    flip through the flash forward's route (the 3xTF32 forward), against
+    the plain attention."""
     from semseg_torch.models.build import build_model
 
     model = build_model(psanet_cfg(shrink_factor=1), dtype=torch.float32,
@@ -657,7 +653,8 @@ def phase_shrink1(dev, image):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
-        check_counts("shrink-1 window", counts, launches(psa_softmax_bmm_flash=2))
+        check_counts("shrink-1 window", counts,
+                     launches(psa_softmax_bmm_flash=2, psa_softmax_bmm_tf32x3=2))
         model.psa.fused_attention = False
         want = model(batch)
     if not torch.isfinite(got).all() or tuple(got.shape) != (2, 19, 705, 705):
@@ -678,20 +675,17 @@ def phase_psa_backward(dev):
     flash backward's route (``psa_softmax_bmm_flash_bwd``: the tensor-core
     dx and da of the dtype, from the flash forward's m, l and output) is
     held to the bars of those kernels against the plain backward from the
-    same statistics. f32: da and dx (3xTF32), the route, the SIMT da and dx
-    and the fused SIMT flash backward they replaced (launched directly)
-    within ``PSA_REL``; the 3xTF32 dx element by element within the JAX
+    same statistics. f32: da and dx (3xTF32) and the route within
+    ``PSA_REL``; the 3xTF32 dx element by element within the JAX
     package's f32 VJP bar (rtol 1e-4, atol 1e-5) against float64
     (``elementwise_f64``), the 3xTF32 da within that bar plus f32's
     cancellation term (``da_f32_ratios``; its ratio to JAX's bar alone, and
     the f32 plain da's to both, printed beside), two calls bit-identical.
     bf16: da and dx on the tensor cores, and the route, within ``da_bars``
     and ``dx_bars`` against the f32 plain da and dx, element by element, and
-    two calls of each bit-identical; the SIMT da and dx and the fused SIMT
-    flash backward within one bf16 ulp of max|plain| against the plain
-    grads rounded to bf16. Printed beside, not
-    a gate: the largest |err| / (1e-2 + 1e-2 |plain|) of both bf16 dx
-    kernels and of the TPU kernel's own rounding on the same inputs
+    two calls of each bit-identical. Printed beside, not a gate: the
+    largest |err| / (1e-2 + 1e-2 |plain|) of the bf16 dx kernel and of the
+    TPU kernel's own rounding on the same inputs
     (``psa_softmax_bmm_bwd_dx_bf16_reference``: p and g rounded to bf16, f32
     sums, a bf16 result), the JAX package's bf16 license
     (``tests/test_psa_pallas.py``), which its tests apply at A = randn and
@@ -699,9 +693,6 @@ def phase_psa_backward(dev):
     roundings exceed the license at this scale too
     (``chip_probes/bf16_dx_license.py``)."""
     from semseg_torch.ops import psa
-
-    def bf16_ulp(v):
-        return 2.0 ** (np.floor(np.log2(v)) - 7)
 
     results = {}
     for label, n, c, hw in PSA_EXTENTS:
@@ -716,16 +707,12 @@ def phase_psa_backward(dev):
                 fout, fm, fl = psa.psa_softmax_bmm_flash(x, a, return_stats=True)
                 da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out)
                 dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)
-                sda = psa._bwd_da_simt(x, a, g, m, l, out, 1.0)
-                sdx = psa._bwd_dx_simt(x, a, g, m, l, 1.0)
                 fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout)
-                sfdx, sfda = psa._flash_bwd_simt(x, a, g, fm, fl, fout, 1.0)
                 torch.cuda.synchronize()
                 dx32, da32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, m, l, out)
                 fdx32, fda32 = psa.psa_softmax_bmm_bwd_reference(x.float(), a.float(), g, fm, fl,
                                                                  fout)
                 if not bf16:
-                    want_dx, want_da, fwant_dx, fwant_da = dx32, da32, fdx32, fda32
                     bar_dx = PSA_REL * dx32.abs().max().item() + 1e-5
                     bar_da = PSA_REL * da32.abs().max().item() + 1e-5
                     dx_ratio = (dx - dx32).abs().max().item() / bar_dx
@@ -745,11 +732,7 @@ def phase_psa_backward(dev):
                         raise AssertionError(f"3xTF32 {label}: dx {dx_elem} of JAX's element-wise "
                                              f"bar, da {da_derived} of its derived bar, or two "
                                              "calls differ")
-                else:  # one bf16 ulp of max|plain|, against plain rounded to bf16
-                    want_dx, want_da = dx32.to(dt).float(), da32.to(dt).float()
-                    fwant_dx, fwant_da = fdx32.to(dt).float(), fda32.to(dt).float()
-                    bar_dx = bf16_ulp(dx32.abs().max().item())
-                    bar_da = bf16_ulp(da32.abs().max().item())
+                else:
                     dx_ratio = ((dx.float() - dx32).abs() / dx_bars(a, g, m, l, dx32)).max().item()
                     da_ratio = ((da.float() - da32).abs()
                                 / da_bars(x, a, g, m, l, da32)).max().item()
@@ -761,37 +744,28 @@ def phase_psa_backward(dev):
                                              f"{da_ratio} of their bars")
                     tpu = psa.psa_softmax_bmm_bwd_dx_bf16_reference(x, a, g, m, l)
                     lic = {k: ((v.float() - dx32).abs() / (1e-2 + 1e-2 * dx32.abs())).max().item()
-                           for k, v in (("tensor-core", dx), ("SIMT", sdx), ("TPU model", tpu))}
+                           for k, v in (("tensor-core", dx), ("TPU model", tpu))}
                     del tpu
                     if not (torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l)) and
                             torch.equal(da, psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out))):
                         raise AssertionError(f"tensor-core {label}: two calls differ")
-                errs = {"da": (da.float() - (da32 if bf16 else want_da)).abs().max().item(),
-                        "dx": (dx.float() - (dx32 if bf16 else want_dx)).abs().max().item(),
-                        "simt_da": (sda.float() - want_da).abs().max().item(),
-                        "simt_dx": (sdx.float() - want_dx).abs().max().item(),
+                errs = {"da": (da.float() - da32).abs().max().item(),
+                        "dx": (dx.float() - dx32).abs().max().item(),
                         "route_da": (fda.float() - fda32).abs().max().item(),
-                        "route_dx": (fdx.float() - fdx32).abs().max().item(),
-                        "simt_flash_da": (sfda.float() - fwant_da).abs().max().item(),
-                        "simt_flash_dx": (sfdx.float() - fwant_dx).abs().max().item()}
-                del dx32, da32, want_dx, want_da, fdx32, fda32, fwant_dx, fwant_da
-                bars = {"simt_da": bar_da, "simt_dx": bar_dx, "simt_flash_da": bar_da,
-                        "simt_flash_dx": bar_dx}
-                if (any(errs[k] > bars[k] for k in bars)
-                        or max(dx_ratio, da_ratio, route_ratio) > 1.0):
-                    raise AssertionError(f"psa backward {label} {dt}: errors {errs}, bars {bars}, "
-                                         f"route at {route_ratio} of its bars")
-                if not all(t.dtype == dt for t in (da, dx, fda, fdx, sda, sdx, sfda, sfdx)):
+                        "route_dx": (fdx.float() - fdx32).abs().max().item()}
+                del dx32, da32, fdx32, fda32
+                if max(dx_ratio, da_ratio, route_ratio) > 1.0:
+                    raise AssertionError(f"psa backward {label} {dt}: errors {errs}, da at "
+                                         f"{da_ratio}, dx at {dx_ratio}, route at {route_ratio} "
+                                         "of their bars")
+                if not all(t.dtype == dt for t in (da, dx, fda, fdx)):
                     raise AssertionError("backward kernels did not return the primal dtypes")
                 ms_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out))
-                ms_sda = cuda_ms(lambda: psa._bwd_da_simt(x, a, g, m, l, out, 1.0))
                 ms_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l))
-                ms_sdx = cuda_ms(lambda: psa._bwd_dx_simt(x, a, g, m, l, 1.0))
                 ms_f = cuda_ms(lambda: psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout))
-                ms_sf = cuda_ms(lambda: psa._flash_bwd_simt(x, a, g, fm, fl, fout, 1.0))
                 plain_da = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out))
                 plain_dx = cuda_ms(lambda: psa.psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l))
-                del da, dx, sda, sdx, fda, fdx, sfda, sfdx
+                del da, dx, fda, fdx
             xr, ar = x.detach().requires_grad_(), a.detach().requires_grad_()
             o = psa.psa_softmax_bmm_reference(xr, ar)
             autograd_ms = cuda_ms(lambda: torch.autograd.grad(o, (xr, ar), g, retain_graph=True))
@@ -803,27 +777,24 @@ def phase_psa_backward(dev):
             da_bound, da_by = psa_da_bound(n, c, hw, dt)
             log(f"[12 psa backward] {label} (N,C,hw)=({n},{c},{hw}) {dname}: errors "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                + f" (bars da {bar_da:.3e}, dx {bar_dx:.3e}; da at {da_ratio:.3f}, dx at "
-                f"{dx_ratio:.3f}, the flash route at {route_ratio:.3f} of their bars"
-                + (f"; 1e-2 license ratio tensor-core dx {lic['tensor-core']:.3f}, SIMT dx "
-                   f"{lic['SIMT']:.3f}, the TPU kernel's rounding {lic['TPU model']:.3f}" if bf16
+                + f" (da at {da_ratio:.3f}, dx at {dx_ratio:.3f}, the flash route at "
+                f"{route_ratio:.3f} of their bars"
+                + (f"; 1e-2 license ratio tensor-core dx {lic['tensor-core']:.3f}, the TPU "
+                   f"kernel's rounding {lic['TPU model']:.3f}" if bf16
                    else f"; 3xTF32 dx at {dx_elem:.3f} and da at {da_elem:.3f} of JAX's 1e-4/1e-5 "
                    f"element-wise against f64, {dx_elem32:.3f} and {da_elem32:.3f} against the "
                    f"f32 plain; da at {da_derived:.3f} of its derived bar (gated), the f32 plain "
                    f"da at {plain_elem:.3f} of JAX's and {plain_derived:.3f} of the derived") + "); "
                 f"da ({kind}) {ms_da:.4f} ms "
                 f"({gflop / ms_da:.1f} TFLOP/s; bound {da_bound:.4f} by {da_by})"
-                + f", SIMT da {ms_sda:.4f} ms ({gflop / ms_sda:.1f})"
                 + f", dx ({kind}) {ms_dx:.4f} ms "
                 f"({gflop / ms_dx:.1f}; bound {dx_bound:.4f} by {dx_by})"
-                + f", SIMT dx {ms_sdx:.4f} ms ({gflop / ms_sdx:.1f})"
-                + f", flash bwd route ({kind} dx + da) {ms_f:.4f} ms ({2 * gflop / ms_f:.1f}), "
-                f"fused SIMT flash bwd {ms_sf:.4f} ms ({2 * gflop / ms_sf:.1f}); plain da "
+                + f", flash bwd route ({kind} dx + da) {ms_f:.4f} ms ({2 * gflop / ms_f:.1f}); "
+                f"plain da "
                 f"{plain_da:.4f}, dx {plain_dx:.4f}, da+dx {plain_da + plain_dx:.4f} ms; autograd "
                 f"of the plain forward {autograd_ms:.4f} ms")
-            results[(label, dname)] = dict(errs=errs, ms_da=ms_da, ms_sda=ms_sda, ms_dx=ms_dx,
-                                           ms_sdx=ms_sdx, da_ratio=da_ratio, ms_sf=ms_sf,
-                                           ms_f=ms_f, plain_da=plain_da, plain_dx=plain_dx,
+            results[(label, dname)] = dict(errs=errs, ms_da=ms_da, ms_dx=ms_dx,
+                                           da_ratio=da_ratio, ms_f=ms_f, plain_da=plain_da, plain_dx=plain_dx,
                                            autograd_ms=autograd_ms, dx_bound=(dx_bound, dx_by),
                                            da_bound=(da_bound, da_by))
             del x, a, g, out, m, l, fout, fm, fl
@@ -867,14 +838,16 @@ def train_cfg(root, batch_size):
 
 
 # Per train step, two directions: bf16 runs the tensor-core forward, da and
-# dx, f32 the 3xTF32 forward, da and dx; f32 at shrink 1 the flash forward
-# and the flash backward's route, which launches the 3xTF32 dx and da.
+# dx, f32 the 3xTF32 forward, da and dx; f32 at shrink 1 the flash forward's
+# and the flash backward's routes, which launch the 3xTF32 forward, and the
+# 3xTF32 dx and da.
 TRAIN_STEP = dict(psa_softmax_bmm_wgmma=2, psa_softmax_bmm_bwd_da_wgmma=2,
                   psa_softmax_bmm_bwd_dx_wgmma=2)
 F32_TRAIN_STEP = dict(psa_softmax_bmm_tf32x3=2, psa_softmax_bmm_bwd_da_tf32x3=2,
                       psa_softmax_bmm_bwd_dx_tf32x3=2)
-SHRINK1_TRAIN_STEP = dict(psa_softmax_bmm_flash=2, psa_softmax_bmm_flash_bwd=2,
-                          psa_softmax_bmm_bwd_da_tf32x3=2, psa_softmax_bmm_bwd_dx_tf32x3=2)
+SHRINK1_TRAIN_STEP = dict(psa_softmax_bmm_flash=2, psa_softmax_bmm_tf32x3=2,
+                          psa_softmax_bmm_flash_bwd=2, psa_softmax_bmm_bwd_da_tf32x3=2,
+                          psa_softmax_bmm_bwd_dx_tf32x3=2)
 
 
 def phase_train_slice(dev):
@@ -1262,6 +1235,83 @@ def phase_psa_module_f32(dev):
         f"{tf32['dx']:.2e}, parameters at most {tf32[tf32_worst]:.2e} ({tf32_worst})")
 
 
+# The reference's multi-scale protocol (tool/test.py), named in the configs'
+# TEST section (``scales: [1.0]  # ... ms as [0.5, ..., 1.75]``).
+MS_SCALES = [0.5, 0.75, 1.0, 1.25, 1.5, 1.75]
+# Per 1024x2048 image at MS_SCALES, from the evaluator's own _scaled_size
+# and _grid_coords: PSPNet50 (713 crops) 2/6/8/15/18/32 windows in
+# 1/2/2/4/5/8 chunks of 4 windows and their flips, PSANet50 (705 crops)
+# 2/6/8/15/21/32 in 1/2/2/4/6/8: one stitch launch a chunk, two bf16
+# tensor-core forwards a PSANet50 chunk (two directions).
+MS_CHUNKS = {"PSPNet50": 22, "PSANet50": 23}
+
+
+def phase_multiscale(dev, images, smi):
+    """Multi-scale serving (phase 19): both models, bf16, flip, window
+    batch 8, at MS_SCALES; one warm-up and 2 timed requests each."""
+    from semseg_torch.serve import build_evaluator
+    from semseg_torch.utils.misc import get_logger
+
+    rates, by_model = {}, {}
+    for label, cfg in (("PSPNet50", pspnet_cfg()), ("PSANet50", psanet_cfg())):
+        cfg.scales = list(MS_SCALES)
+        ev = build_evaluator(cfg, get_logger(), dtype=torch.bfloat16, device=dev, seed=0)
+        if not ev.fused_stitch:
+            raise AssertionError("the bf16 CUDA evaluator did not pick the fused kernel")
+        h, w = images[0].shape[:2]
+        chunks = sum(len(ev._geometry(h, w, s).chunks) for s in ev.scales)
+        windows = sum(sum(ev._geometry(h, w, s).n_real) for s in ev.scales)
+        if chunks != MS_CHUNKS[label]:
+            raise AssertionError(f"{label}: {chunks} chunks an image, expected {MS_CHUNKS[label]}")
+        psa_fwd = 2 * chunks if label == "PSANet50" else 0
+        ev.predict(images[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        preds = [ev.predict(img) for img in images[1:3]]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        check_counts(f"{label} multi-scale", counts, {k: v * len(preds) for k, v in launches(
+            upsample_softmax_flip=chunks, psa_softmax_bmm_wgmma=psa_fwd).items()})
+        for pred in preds:
+            if pred.shape != (h, w) or pred.dtype != np.uint8 or pred.max() >= cfg.classes:
+                raise AssertionError(f"{label}: bad class map {pred.shape} {pred.dtype}")
+        pf = ev.predict_probs(images[1])
+        # predict is the argmax of the f32 sum, predict_probs the sum / 6:
+        # the division may tie two classes that the sum told apart
+        top2 = np.partition(pf, -2, axis=-1)[..., -2:]
+        differ = preds[0] != pf.argmax(-1)
+        if (differ & (top2[..., 1] != top2[..., 0])).any():
+            raise AssertionError(f"{label}: predict and predict_probs disagree off exact ties")
+        if label == "PSANet50":
+            ev.model.psa.fused_attention = False
+            try:
+                reset_counts()
+                pp = ev.predict_probs(images[1])
+                torch.cuda.synchronize()
+                check_counts("multi-scale plain attention", read_counts(),
+                             launches(upsample_softmax_flip=chunks))
+            finally:
+                ev.model.psa.fused_attention = None
+            agreement(19, "PSANet50 multi-scale kernel vs plain attention", pf, pp)
+        rates[label], by_model[label] = len(preds) / seconds, counts
+        busy, span, idle, table, psa_rows = device_profile(
+            lambda: ev.predict(images[2]), OUT_DIR / f"multiscale_{label}_profile.txt")
+        log(f"[19 multi-scale] {label} bf16 {h}x{w}, scales {MS_SCALES}, flip, window_batch "
+            f"8: {windows} windows in {chunks} chunks an image; {len(preds)} requests in "
+            f"{seconds:.3f} s = {rates[label]:.4f} images/s on {smi}; launches {counts}; "
+            f"predict vs argmax of predict_probs: {int(differ.sum())} pixels differ, all on "
+            f"exact ties of the mean; profile of one request: device busy {busy:.2f} ms of "
+            f"{span:.2f} ms, idle share {idle:.4f}, PSA kernels "
+            f"{sum(ms for ms, _ in psa_rows.values()):.3f} ms")
+        for ln in table.splitlines()[3:9]:
+            log(f"[19 multi-scale]   {ln.strip()[:150]}")
+        del ev, pf
+        torch.cuda.empty_cache()
+    return rates, by_model
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1269,7 +1319,7 @@ def main():
     from semseg_torch.ops import psa, stitch  # noqa: F401  (fails outside the repo)
 
     dev = torch.device("cuda", 0)
-    name = phase_device()
+    name, smi = phase_device()
     phase_build()
     stitch_k = phase_stitch_kernel(dev)
     psa_k = phase_psa_kernels(dev)
@@ -1301,6 +1351,7 @@ def main():
     f32_timing = phase_f32_train_timing(dev)
     shrink1_train_counts = phase_grad_vs_plain(17, dev, 1, SHRINK1_TRAIN_STEP, timed=3)
     phase_psa_module_f32(dev)
+    ms_rates, ms_counts = phase_multiscale(dev, images, smi)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -1308,13 +1359,17 @@ def main():
         raise AssertionError(f"jax or JAX-package modules were imported: {loaded}")
     log(f"[summary] no jax and no semseg_tpu module loaded; "
         f"train {batch}: {timing['images_per_s']:.3f} images/s, {timing['peak_gib']:.2f} GiB; "
-        f"f32 train 8: {f32_timing['images_per_s']:.3f} images/s, {f32_timing['peak_gib']:.2f} GiB"
+        f"f32 train 8: {f32_timing['images_per_s']:.3f} images/s, {f32_timing['peak_gib']:.2f} GiB; "
+        f"multi-scale serving: PSPNet50 {ms_rates['PSPNet50']:.4f}, PSANet50 "
+        f"{ms_rates['PSANet50']:.4f} images/s"
         + (f"; {'; '.join(notes)}" if notes else ""))
 
     by_path = {"pspnet_slice": psp_counts, "psanet_slice": psa_counts,
                "psanet_shrink1_window": shrink1_counts, "psanet_train_slice": train_counts,
                "pspnet_train_steps": psp_train_counts, "psanet_f32_train_step": f32_counts,
-               "psanet_shrink1_train_step": shrink1_train_counts}
+               "psanet_shrink1_train_step": shrink1_train_counts,
+               "pspnet_multiscale": ms_counts["PSPNet50"],
+               "psanet_multiscale": ms_counts["PSANet50"]}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]
@@ -1333,10 +1388,8 @@ def main():
     flash_bwd_bound = bound(2 * 7921 ** 2 * 4 + 4 * 512 * 7921 * 4, 4 * 512 * 7921 ** 2, f32)
     # (name, source, TPU kernel, launches on the path it serves, error, ms,
     # plain ms, bound): each at the shape and dtype of its main path. The
-    # SIMT resident forward, da and dx and the fused SIMT flash backward
-    # serve no path: their rows are the comparison launches of phases 4 and
-    # 12, at the f32 path's shape, with that path's (zero) launches. The
-    # flash backward's row is its route, which counts its own calls.
+    # flash forward's and backward's rows are their routes, which count their
+    # own calls.
     records = [
         ("upsample_softmax_flip", "semseg_torch/csrc/stitch.cu",
          "semseg_tpu/ops/stitch_pallas.py:131", psa_counts, city["max_abs_err"],
@@ -1347,9 +1400,6 @@ def main():
         ("psa_softmax_bmm_tf32x3", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:48", f32_counts, fwd32["err_r"], fwd32["ms_r"],
          fwd32["plain_ms"], fwd32["bound"]),
-        ("psa_softmax_bmm", "semseg_torch/csrc/psa.cu",
-         "semseg_tpu/ops/psa_pallas.py:48", f32_counts, fwd32["err_s"], fwd32["ms_s"],
-         fwd32["plain_ms"], fwd32["bound"]),
         ("psa_softmax_bmm_flash", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:303", shrink1_counts, flash["err_f"],
          flash["ms_f"], flash["plain_ms"], psa_fwd_bound(1, 512, 7921, f32)),
@@ -1359,34 +1409,18 @@ def main():
         ("psa_softmax_bmm_bwd_da_tf32x3", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:125", f32_counts, bwd32["errs"]["da"],
          bwd32["ms_da"], bwd32["plain_da"], bwd32["da_bound"]),
-        ("psa_softmax_bmm_bwd_da", "semseg_torch/csrc/psa.cu",
-         "semseg_tpu/ops/psa_pallas.py:125", f32_counts, bwd32["errs"]["simt_da"],
-         bwd32["ms_sda"], bwd32["plain_da"], bwd32["da_bound"]),
         ("psa_softmax_bmm_bwd_dx_wgmma", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:140", train_counts, bwd16["errs"]["dx"],
          bwd16["ms_dx"], bwd16["plain_dx"], bwd16["dx_bound"]),
         ("psa_softmax_bmm_bwd_dx_tf32x3", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:140", f32_counts, bwd32["errs"]["dx"],
          bwd32["ms_dx"], bwd32["plain_dx"], bwd32["dx_bound"]),
-        ("psa_softmax_bmm_bwd_dx", "semseg_torch/csrc/psa.cu",
-         "semseg_tpu/ops/psa_pallas.py:140", f32_counts, bwd32["errs"]["simt_dx"],
-         bwd32["ms_sdx"], bwd32["plain_dx"], bwd32["dx_bound"]),
         ("psa_softmax_bmm_flash_bwd", "semseg_torch/csrc/psa.cu",
          "semseg_tpu/ops/psa_pallas.py:383", shrink1_train_counts,
          max(fbwd["errs"]["route_da"], fbwd["errs"]["route_dx"]), fbwd["ms_f"],
          fbwd["plain_da"] + fbwd["plain_dx"], flash_bwd_bound),
-        ("psa_flash_bwd_simt", "semseg_torch/csrc/psa.cu",
-         "semseg_tpu/ops/psa_pallas.py:383", shrink1_train_counts,
-         max(fbwd["errs"]["simt_flash_da"], fbwd["errs"]["simt_flash_dx"]), fbwd["ms_sf"],
-         fbwd["plain_da"] + fbwd["plain_dx"], flash_bwd_bound),
     ]
-    off_path = ("psa_softmax_bmm", "psa_softmax_bmm_bwd_dx", "psa_softmax_bmm_bwd_da",
-                "psa_flash_bwd_simt")
-    if any(c[k] for k in off_path for c in by_path.values()):
-        raise AssertionError(f"a SIMT resident forward, da or dx, or the fused SIMT flash "
-                             f"backward, ran on a path: {by_path}")
-    missing = [k for k, *_, counts, _e, _m, _p, _b in records
-               if counts[k] == 0 and k not in off_path]
+    missing = [k for k, *_, counts, _e, _m, _p, _b in records if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
     # No single PyTorch call computes any of these functions (each fuses a

@@ -1,22 +1,27 @@
-"""Single-scale sliding-window inference engine (``device`` mode).
+"""Sliding-window inference engine (``device`` mode), single- and
+multi-scale.
 
 Port of ``semseg_tpu/engine/evaluator.py``, numerics-compatible with the
-reference pipeline (``tool/test.py:122-223``): the long side is resized
-to ``round(scale * base_size)`` (half-pixel bilinear), the image is
-mean-padded to the crop size, overlapping crop windows on a
+reference pipeline (``tool/test.py:122-223``): for each scale, the long
+side is resized to ``round(scale * base_size)`` (half-pixel bilinear), the
+image is mean-padded to the crop size, overlapping crop windows on a
 ``ceil(crop * 2/3)`` stride run through the model with horizontal-flip
 TTA, per-window class probabilities are accumulated in float32 and
-count-normalized, un-padded, resized back to the original resolution,
-and reduced to a uint8 class map. Everything after the uint8 upload runs
-on the evaluator's device; the pipeline is channels-first throughout.
+count-normalized, un-padded and resized back to the original resolution.
+The scales' maps are summed in float32, in scale order (a bf16 model's
+per-scale maps are bf16; a bf16 running sum would round again at every
+scale), and reduced to a uint8 class map; ``predict_probs`` returns the
+sum over the number of scales. The image is uploaded once per request,
+and everything after the uint8 upload runs on the evaluator's device; the
+pipeline is channels-first throughout.
 
 With a bf16 model on CUDA, each chunk's zoom upsample, softmax and flip
 average run as one fused kernel (``ops/stitch.py``) on logits taken at
 feature resolution.
 
-Not ported yet: the multi-scale combiner (ROADMAP queue 1 item 11) and
-the cv2 ``host`` mode. ``device_bucketed`` only bounded XLA compiles and
-runs the same eager pipeline as ``device``.
+Not ported yet: the cv2 ``host`` mode. ``device_bucketed`` only bounded
+XLA compiles and runs the same eager pipeline as ``device``; nor is the
+JAX package's ``pooled_ms`` (off by default there).
 """
 
 from __future__ import annotations
@@ -106,15 +111,11 @@ class SlidingWindowEvaluator:
         if mode not in ("device", "device_bucketed"):
             raise ValueError(
                 f"mode must be 'device', 'device_bucketed' or 'host', got {mode}")
-        if len(scales) != 1:
-            raise NotImplementedError(
-                "multi-scale evaluation is not ported yet "
-                "(ROADMAP queue 1 item 11); pass one scale")
         self.model = model.eval()
         self.classes = classes
         self.crop_h, self.crop_w = crop_h, crop_w
         self.base_size = base_size
-        self.scale = float(scales[0])
+        self.scales = [float(s) for s in scales]
         self.flip = flip
         self.stride_rate = stride_rate
         self.window_batch = max(2, window_batch)
@@ -168,12 +169,12 @@ class SlidingWindowEvaluator:
     # ------------------------------------------------------------------
     # one scale's pipeline
     # ------------------------------------------------------------------
-    def _geometry(self, h, w) -> _Geometry:
-        key = (h, w)
+    def _geometry(self, h, w, scale) -> _Geometry:
+        key = (h, w, scale)
         if key in self._geometries:
             return self._geometries[key]
         crop_h, crop_w = self.crop_h, self.crop_w
-        new_h, new_w = _scaled_size(h, w, self.scale, self.base_size)
+        new_h, new_w = _scaled_size(h, w, scale, self.base_size)
         pad_h = max(crop_h - new_h, 0)
         pad_w = max(crop_w - new_w, 0)
         canvas_h, canvas_w = new_h + pad_h, new_w + pad_w
@@ -200,15 +201,13 @@ class SlidingWindowEvaluator:
         self._geometries[key] = geom
         return geom
 
-    def _scale_probs(self, image: np.ndarray) -> torch.Tensor:
-        """One RGB ``[h, w, 3]`` image (uint8 or float, 0-255) -> class
-        probabilities ``[C, h, w]`` on the device (bf16 on a bf16 model)."""
-        h, w, _ = image.shape
-        g = self._geometry(h, w)
+    def _scale_probs(self, img: torch.Tensor, scale: float) -> torch.Tensor:
+        """The uploaded image ``[3, h, w]`` (float32, 0-255) at one scale
+        -> class probabilities ``[C, h, w]`` on the device (bf16 on a bf16
+        model)."""
+        _, h, w = img.shape
+        g = self._geometry(h, w, scale)
         crop_h, crop_w = self.crop_h, self.crop_w
-        # upload as is (uint8 ships a quarter of the float32 bytes)
-        img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
-        img = img.permute(2, 0, 1).float()
         # 1) scale (half-pixel bilinear, cv2-equivalent)
         img = resize_bilinear_half_pixel_cf(img, (g.new_h, g.new_w))
         # 2) mean-pad to at least the crop size
@@ -245,20 +244,37 @@ class SlidingWindowEvaluator:
             acc = acc.to(torch.bfloat16)
         return resize_bilinear_half_pixel_cf(acc, (h, w))
 
+    def _probs_sum(self, image: np.ndarray) -> torch.Tensor:
+        """One RGB ``[h, w, 3]`` image (uint8 or float, 0-255) -> the sum
+        over scales of the class probabilities ``[C, h, w]``, in float32 and
+        scale order (one scale: its map as it is, bf16 on a bf16 model).
+        The image is uploaded once; nothing here waits for the device."""
+        # upload as is (uint8 ships a quarter of the float32 bytes)
+        img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        img = img.permute(2, 0, 1).float()
+        total = None
+        for scale in self.scales:
+            probs = self._scale_probs(img, scale)
+            total = probs if total is None else total.float() + probs
+        return total
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def predict_probs(self, image: np.ndarray) -> np.ndarray:
-        """Class probabilities ``[h, w, C]`` float32 for one RGB image
-        (bf16 models' bf16 probabilities are widened exactly)."""
-        return self._scale_probs(image).float().permute(1, 2, 0).cpu().numpy()
+        """Class probabilities ``[h, w, C]`` float32 for one RGB image: the
+        mean over scales (bf16 models' bf16 probabilities are widened
+        exactly)."""
+        probs = self._probs_sum(image).float() / len(self.scales)
+        return probs.permute(1, 2, 0).cpu().numpy()
 
     @torch.inference_mode()
     def predict_async(self, image: np.ndarray) -> torch.Tensor:
-        """The uint8 class map ``[h, w]`` as a device tensor; on CUDA the
-        work is queued and the call returns before it finishes."""
-        return torch.argmax(self._scale_probs(image), dim=0).to(torch.uint8)
+        """The uint8 class map ``[h, w]`` (argmax of the float32 sum over
+        scales) as a device tensor; on CUDA the work is queued and the call
+        returns before it finishes."""
+        return torch.argmax(self._probs_sum(image), dim=0).to(torch.uint8)
 
     def predict(self, image: np.ndarray) -> np.ndarray:
         """argmax class map for one image (uint8)."""

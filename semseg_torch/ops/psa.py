@@ -10,21 +10,24 @@ attention to device memory. ``x`` is ``[N, C, HW]`` and ``A`` is
 ``[N, HW, HW]``, both bfloat16 or both float32; the output is float32
 ``[N, C, HW]``. The operand dtype picks the precision, as the JAX kernels'
 ``_precision_for`` does: float32 operands run at HIGHEST precision, float32
-products to within the 1e-5 bars (as 3xTF32 on the tensor cores, or as
-float32 FMAs on the CUDA cores); bfloat16 operands may run the product at
-DEFAULT precision, one bf16 pass with ``p`` (and ``g`` in the backward)
-rounded to bfloat16 and float32 sums.
+products to within the 1e-5 bars (as 3xTF32 on the tensor cores);
+bfloat16 operands may run the product at DEFAULT precision, one bf16 pass
+with ``p`` (and ``g`` in the backward) rounded to bfloat16 and float32
+sums.
 
-Eleven kernels in ``csrc/psa.cu``. Forward, picked by
+Six kernels in ``csrc/psa.cu``, all on the tensor cores: for each operand
+dtype a forward, a dx and a da kernel. Forward, picked by
 :func:`select_psa_kernel`:
-- **resident** (:func:`psa_softmax_bmm`): all source rows per query
-  tile, one pass with an online softmax, on the tensor cores: float32
-  operands as 3xTF32 (:func:`psa_softmax_bmm_tf32x3`: each operand split
-  into a TF32 high part and a TF32 remainder, three wgmma passes into f32
-  sums), bfloat16 operands in one bf16 pass (:func:`psa_softmax_bmm_wgmma`);
-- **flash** (:func:`psa_softmax_bmm_flash`): one pass over the source
-  rows with an online softmax (running max ``m``, running sum ``l``), f32
-  math for both dtypes.
+- **resident** (:func:`psa_softmax_bmm`): one pass over all source rows
+  per query tile with an online softmax: float32 operands as 3xTF32
+  (:func:`psa_softmax_bmm_tf32x3`: each operand split into a TF32 high
+  part and a TF32 remainder, three wgmma passes into f32 sums), bfloat16
+  operands in one bf16 pass (:func:`psa_softmax_bmm_wgmma`);
+- **flash** (:func:`psa_softmax_bmm_flash`): the same kernel of the
+  operands' dtype, which always writes the running max ``m`` and sum
+  ``l``. The TPU split its forward in two to bound VMEM; on Hopper the
+  resident kernel's shared memory does not depend on ``hw``, so the two
+  entry points give bit-identical results.
 Backward, from the forward's ``m``, ``l`` and output (p is recomputed as
 ``exp(A - m) / l``; the softmax VJP's column term comes from the flash
 identity ``sum_i p * dP = sum_c g * out``):
@@ -32,15 +35,11 @@ identity ``sum_i p * dP = sum_c g * out``):
   :func:`psa_softmax_bmm_bwd_da_tf32x3`; bfloat16:
   :func:`psa_softmax_bmm_bwd_da_wgmma`) and :func:`psa_softmax_bmm_bwd_dx`
   (float32: :func:`psa_softmax_bmm_bwd_dx_tf32x3`; bfloat16:
-  :func:`psa_softmax_bmm_bwd_dx_wgmma`), all on the tensor cores;
+  :func:`psa_softmax_bmm_bwd_dx_wgmma`);
 - flash: :func:`psa_softmax_bmm_flash_bwd`, the same dx and da kernels
   launched in turn from the flash forward's ``m`` and ``l``.
 The dtype rule is a rule, not a fallback: if a kernel does not build or a
-launch fails, the call raises. No call reaches the SIMT resident forward,
-da or dx kernel, nor the fused SIMT flash backward, through these entry
-points (``_forward_simt``, ``_bwd_da_simt``, ``_bwd_dx_simt`` and
-``_flash_bwd_simt`` launch them, for comparison only; the last counts in
-``_flash_bwd_simt.launches``).
+launch fails, the call raises.
 
 :func:`psa_softmax_bmm` and :func:`psa_softmax_bmm_flash` are
 differentiable: while grad is enabled and an input requires it, they run
@@ -48,7 +47,11 @@ through a ``torch.autograd.Function`` whose backward is the matching
 backward kernel(s), from the saved x, a, out, m and l. Gradients come back in the primal dtypes. On CPU
 tensors every entry point runs its plain PyTorch version (autograd runs
 through the same Functions); on CUDA tensors it launches its kernel or
-raises. Each kernel's wrapper counts its launches in ``.launches``.
+raises. Each kernel's wrapper (the ``_wgmma`` and ``_tf32x3`` functions)
+counts its launches in ``.launches``; the dtype-dispatching entry points
+(:func:`psa_softmax_bmm`, :func:`psa_softmax_bmm_flash`, the two resident
+backward ones and :func:`psa_softmax_bmm_flash_bwd`) count their calls on
+CUDA tensors in theirs.
 """
 
 from __future__ import annotations
@@ -218,11 +221,6 @@ def _lib():
 
     lib = load_library("psa")
     signatures = {
-        "semseg_psa_softmax_bmm": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
-        "semseg_psa_softmax_bmm_flash": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
-        "semseg_psa_bwd_da": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
-        "semseg_psa_bwd_dx": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
-        "semseg_psa_flash_bwd": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
         "semseg_psa_softmax_bmm_wgmma": [_P] * 6 + [_I] * 3 + [_F, _P],
         "semseg_psa_bwd_dx_wgmma": [_P] * 6 + [_I] * 3 + [_F, _P],
         "semseg_psa_bwd_da_wgmma": [_P] * 8 + [_I] * 3 + [_F, _P],
@@ -320,36 +318,17 @@ def _tf32x3_pack(x: torch.Tensor) -> torch.Tensor:
 
 def _forward(x, a, norm, flash: bool, stats: bool):
     """One forward launch (or its plain version on the CPU): ``out`` and,
-    with ``stats``, ``m`` and ``l``. The resident forward on CUDA operands
-    is a tensor-core kernel (bf16 or 3xTF32); the flash forward the SIMT
-    one."""
+    with ``stats``, ``m`` and ``l``. CUDA operands run the tensor-core
+    forward of their dtype (bf16 or 3xTF32), the flash route always with
+    ``m`` and ``l``, and count on the entry point of ``flash``."""
     if x.device.type == "cpu" and a.device.type == "cpu":
         out = psa_softmax_bmm_reference(x, a, norm)
         return (out, *psa_softmax_stats(a)) if stats else out
     _check_cuda(x, a)
-    if flash:
-        return _forward_simt(x, a, norm, flash, stats)
-    if x.dtype == torch.bfloat16:
-        return _forward_wgmma(x, a, norm, stats)
-    return _forward_tf32x3(x, a, norm, stats)
-
-
-def _forward_simt(x, a, norm, flash: bool, stats: bool):
-    """The SIMT forward kernels (f32 math) on checked CUDA operands of
-    either dtype; counts on the entry point's wrapper. The resident one is
-    off every path, launched for comparison only."""
-    n, c, hw = x.shape
-    out = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
-    m = l = None
-    if stats or flash:  # the flash kernel always writes them
-        m = torch.empty((n, hw), dtype=torch.float32, device=x.device)
-        l = torch.empty((n, hw), dtype=torch.float32, device=x.device)
-    name = "semseg_psa_softmax_bmm_flash" if flash else "semseg_psa_softmax_bmm"
-    _launch(name, x, _ptr(x), _ptr(a), _ptr(out), _ptr(m), _ptr(l),
-            n, c, hw, 1.0 / norm, int(x.dtype == torch.bfloat16))
-    wrapper = psa_softmax_bmm_flash if flash else psa_softmax_bmm
-    wrapper.launches += 1
-    return (out, m, l) if stats else out
+    kernel = _forward_wgmma if x.dtype == torch.bfloat16 else _forward_tf32x3
+    res = kernel(x, a, norm, stats or flash)
+    (psa_softmax_bmm_flash if flash else psa_softmax_bmm).launches += 1
+    return res if stats or not flash else res[0]
 
 
 def _forward_wgmma(x, a, norm, stats: bool):
@@ -417,9 +396,8 @@ def psa_softmax_bmm(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
     through the resident backward kernels. CPU tensors run the plain
     version; float32 CUDA tensors run the 3xTF32 kernel and add one to
     ``psa_softmax_bmm_tf32x3.launches``; bfloat16 CUDA tensors run the bf16
-    tensor-core kernel and add one to ``psa_softmax_bmm_wgmma.launches``.
-    ``psa_softmax_bmm.launches`` counts the SIMT resident kernel, which
-    ``_forward_simt`` launches for comparison only."""
+    tensor-core kernel and add one to ``psa_softmax_bmm_wgmma.launches``;
+    either adds one to ``psa_softmax_bmm.launches``."""
     if _needs_grad(x, a):
         if return_stats:
             raise ValueError("return_stats is forward-only: call under torch.no_grad()")
@@ -483,14 +461,19 @@ psa_softmax_bmm_tf32x3.launches = 0
 
 def psa_softmax_bmm_flash(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
                           return_stats: bool = False):
-    """``(1/norm) * x @ softmax(a, dim=1)`` with the flash kernel.
+    """``(1/norm) * x @ softmax(a, dim=1)``, the flash forward
+    (``psa_pallas.py::_flash_fwd_kernel``).
 
     Returns float32 ``[N, C, HW]``, or ``(out, m, l)`` with
     ``return_stats``: the column max and the sum of ``exp(a - m)``, float32
     ``[N, HW]`` (forward only, as for :func:`psa_softmax_bmm`). While grad is
     enabled and an input requires it, the call is differentiable through
-    :func:`psa_softmax_bmm_flash_bwd`. CPU tensors run the plain version; CUDA
-    tensors run the kernel and add one to ``psa_softmax_bmm_flash.launches``."""
+    :func:`psa_softmax_bmm_flash_bwd`. CPU tensors run the plain version.
+    CUDA tensors run the route: the tensor-core forward of their dtype, as
+    :func:`psa_softmax_bmm` does (bit-identical to it; the counter of
+    :func:`psa_softmax_bmm_wgmma` or :func:`psa_softmax_bmm_tf32x3` moves),
+    always writing ``m`` and ``l``; each such call adds one to
+    ``psa_softmax_bmm_flash.launches``."""
     if _needs_grad(x, a):
         if return_stats:
             raise ValueError("return_stats is forward-only: call under torch.no_grad()")
@@ -506,14 +489,15 @@ def psa_softmax_bmm_bwd_da(x, a, g, m, l, out, norm: float = 1.0) -> torch.Tenso
     ``a``'s dtype (``psa_pallas.py::_bwd_da_kernel``). CPU tensors run the
     plain version; float32 CUDA tensors run the 3xTF32 kernel
     (:func:`psa_softmax_bmm_bwd_da_tf32x3`), bfloat16 ones the bf16
-    tensor-core kernel (:func:`psa_softmax_bmm_bwd_da_wgmma`).
-    ``psa_softmax_bmm_bwd_da.launches`` counts the SIMT da kernel, which
-    ``_bwd_da_simt`` launches for comparison only."""
+    tensor-core kernel (:func:`psa_softmax_bmm_bwd_da_wgmma`); either adds
+    one to ``psa_softmax_bmm_bwd_da.launches``."""
     if x.device.type == "cpu":
         return psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out, norm)
     _check_cuda(x, a)
     _check_cuda_f32(x, g=g, m=m, l=l, out=out)
-    return _bwd_da(x, a, g, m, l, out, norm)
+    da = _bwd_da(x, a, g, m, l, out, norm)
+    psa_softmax_bmm_bwd_da.launches += 1
+    return da
 
 
 def _bwd_da(x, a, g, m, l, out, norm):
@@ -521,18 +505,6 @@ def _bwd_da(x, a, g, m, l, out, norm):
     if x.dtype == torch.bfloat16:
         return _bwd_da_wgmma(x, a, g, m, l, out, norm)
     return _bwd_da_tf32x3(x, a, g, m, l, out, norm)
-
-
-def _bwd_da_simt(x, a, g, m, l, out, norm):
-    """The SIMT da kernel (f32 math) on checked CUDA operands of either
-    dtype; off every path, launched for comparison only."""
-    n, c, hw = x.shape
-    delta = _delta(g, out)
-    da = torch.empty_like(a)
-    _launch("semseg_psa_bwd_da", x, _ptr(x), _ptr(a), _ptr(g), _ptr(m), _ptr(l),
-            _ptr(delta), _ptr(da), n, c, hw, 1.0 / norm, int(x.dtype == torch.bfloat16))
-    psa_softmax_bmm_bwd_da.launches += 1
-    return da
 
 
 psa_softmax_bmm_bwd_da.launches = 0
@@ -610,14 +582,15 @@ def psa_softmax_bmm_bwd_dx(x, a, g, m, l, norm: float = 1.0) -> torch.Tensor:
     (``psa_pallas.py::_bwd_dx_kernel``; ``x`` gives the shape and dtype
     only). CPU tensors run the plain version; float32 CUDA tensors run the
     3xTF32 kernel (:func:`psa_softmax_bmm_bwd_dx_tf32x3`), bfloat16 ones the
-    bf16 tensor-core kernel (:func:`psa_softmax_bmm_bwd_dx_wgmma`).
-    ``psa_softmax_bmm_bwd_dx.launches`` counts the SIMT dx kernel, which
-    ``_bwd_dx_simt`` launches for comparison only."""
+    bf16 tensor-core kernel (:func:`psa_softmax_bmm_bwd_dx_wgmma`); either
+    adds one to ``psa_softmax_bmm_bwd_dx.launches``."""
     if x.device.type == "cpu":
         return psa_softmax_bmm_bwd_dx_reference(x, a, g, m, l, norm)
     _check_cuda(x, a)
     _check_cuda_f32(x, g=g, m=m, l=l)
-    return _bwd_dx(x, a, g, m, l, norm)
+    dx = _bwd_dx(x, a, g, m, l, norm)
+    psa_softmax_bmm_bwd_dx.launches += 1
+    return dx
 
 
 def _bwd_dx(x, a, g, m, l, norm):
@@ -625,17 +598,6 @@ def _bwd_dx(x, a, g, m, l, norm):
     if x.dtype == torch.bfloat16:
         return _bwd_dx_wgmma(x, a, g, m, l, norm)
     return _bwd_dx_tf32x3(x, a, g, m, l, norm)
-
-
-def _bwd_dx_simt(x, a, g, m, l, norm):
-    """The SIMT dx kernel (f32 math) on checked CUDA operands of either
-    dtype; off every path, launched for comparison only."""
-    n, c, hw = x.shape
-    dx = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
-    _launch("semseg_psa_bwd_dx", x, _ptr(a), _ptr(g), _ptr(m), _ptr(l), _ptr(dx),
-            n, c, hw, 1.0 / norm, int(x.dtype == torch.bfloat16))
-    psa_softmax_bmm_bwd_dx.launches += 1
-    return dx.to(x.dtype)
 
 
 psa_softmax_bmm_bwd_dx.launches = 0
@@ -722,24 +684,6 @@ def psa_softmax_bmm_flash_bwd(x, a, g, m, l, out, norm: float = 1.0):
 
 
 psa_softmax_bmm_flash_bwd.launches = 0
-
-
-def _flash_bwd_simt(x, a, g, m, l, out, norm):
-    """The fused SIMT flash backward (f32 math) on checked CUDA operands of
-    either dtype; off every path, launched for comparison only. Counts in
-    ``_flash_bwd_simt.launches``."""
-    n, c, hw = x.shape
-    delta = _delta(g, out)
-    da = torch.empty_like(a)
-    dx = torch.empty((n, c, hw), dtype=torch.float32, device=x.device)
-    _launch("semseg_psa_flash_bwd", x, _ptr(x), _ptr(a), _ptr(g), _ptr(m), _ptr(l),
-            _ptr(delta), _ptr(da), _ptr(dx), n, c, hw, 1.0 / norm,
-            int(x.dtype == torch.bfloat16))
-    _flash_bwd_simt.launches += 1
-    return dx.to(x.dtype), da
-
-
-_flash_bwd_simt.launches = 0
 
 
 def psa_softmax_bmm_auto(x: torch.Tensor, a: torch.Tensor,

@@ -98,7 +98,7 @@ def test_fused_slice_on_cuda(cuda):
     image = (np.random.RandomState(0).rand(128, 256, 3) * 255).astype(np.uint8)
     before = stitch.upsample_softmax_flip.launches
     fused = ev.predict_probs(image)
-    n_chunks = len(ev._geometry(128, 256).chunks)
+    n_chunks = len(ev._geometry(128, 256, 1.0).chunks)
     assert stitch.upsample_softmax_flip.launches == before + n_chunks
     plain = SlidingWindowEvaluator(
         ev.model, classes=19, crop_h=97, crop_w=97, mean=IMAGENET_MEAN,
@@ -160,19 +160,19 @@ def _da_bars(x, a, g, m, l, da32, norm):
     (1, 512, 7921, torch.bfloat16),  # shrink 1 (flash on the path)
 ])
 def test_psa_kernels_match_plain(cuda, n, c, hw, dtype):
-    """Both forward entry points, whatever the rule picks. The flash kernel
-    and the f32 resident (3xTF32) kernel: max abs diff <= 1e-4 * max|plain|
-    + 1e-5 (f32 sums over up to hw terms in another order). bf16 operands
-    send the resident forward to the bf16 tensor-core kernel, held to
-    ``_fwd_bars``. m exact and l within 1e-5 relative."""
+    """Both forward entry points, whatever the rule picks; both run the
+    tensor-core forward of the dtype. f32 (3xTF32): max abs diff <= 1e-4 *
+    max|plain| + 1e-5 (f32 sums over up to hw terms in another order). bf16:
+    element by element within ``_fwd_bars``. m exact and l within 1e-5
+    relative."""
     g = torch.Generator(device=cuda).manual_seed(hw)
     x = torch.randn(n, c, hw, generator=g, device=cuda).to(dtype)
     a = (torch.randn(n, hw, hw, generator=g, device=cuda) * 3).to(dtype)
     want = psa.psa_softmax_bmm_reference(x, a, 1.3)
     m_ref, l_ref = psa.psa_softmax_stats(a)
     bar = 1e-4 * want.abs().max().item() + 1e-5
-    resident = (psa.psa_softmax_bmm_wgmma if dtype == torch.bfloat16
-                else psa.psa_softmax_bmm_tf32x3)
+    kernel = (psa.psa_softmax_bmm_wgmma if dtype == torch.bfloat16
+              else psa.psa_softmax_bmm_tf32x3)
     counters = (psa.psa_softmax_bmm, psa.psa_softmax_bmm_wgmma, psa.psa_softmax_bmm_tf32x3,
                 psa.psa_softmax_bmm_flash)
     before = {f: f.launches for f in counters}
@@ -180,13 +180,14 @@ def test_psa_kernels_match_plain(cuda, n, c, hw, dtype):
     out, m, l = psa.psa_softmax_bmm_flash(x, a, 1.3, return_stats=True)
     torch.cuda.synchronize()
     assert {f: f.launches - before[f] for f in counters} == {
-        f: int(f in (resident, psa.psa_softmax_bmm_flash)) for f in counters}
+        f: 2 if f is kernel else int(f in (psa.psa_softmax_bmm, psa.psa_softmax_bmm_flash))
+        for f in counters}
     assert res.dtype == out.dtype == torch.float32 and res.shape == want.shape
-    if dtype == torch.bfloat16:
-        assert ((res - want).abs() <= _fwd_bars(x, a, 1.3)).all()
-    else:
-        assert (res - want).abs().max().item() <= bar
-    assert (out - want).abs().max().item() <= bar
+    for got in (res, out):
+        if dtype == torch.bfloat16:
+            assert ((got - want).abs() <= _fwd_bars(x, a, 1.3)).all()
+        else:
+            assert (got - want).abs().max().item() <= bar
     assert torch.equal(m, m_ref)
     assert ((l - l_ref).abs() / l_ref).max().item() <= 1e-5
 
@@ -202,9 +203,7 @@ def test_wgmma_kernels_match_plain(cuda, n, c, hw):
     f32 versions: element by element within ``_fwd_bars`` and
     ``_dx_bars``, and within the JAX package's bf16 license (rtol = atol =
     1e-2, ``tests/test_psa_pallas.py``); m exact, l within 1e-5; two calls
-    bit-identical; one launch each; the SIMT kernels they replaced, launched
-    directly on the same bf16 operands, still within 1e-4 (forward) and one
-    bf16 ulp of max|plain| (dx)."""
+    bit-identical; one launch each."""
     g0 = torch.Generator(device=cuda).manual_seed(hw + 2)
     x = torch.randn(n, c, hw, generator=g0, device=cuda).to(torch.bfloat16)
     a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(torch.bfloat16)
@@ -227,12 +226,6 @@ def test_wgmma_kernels_match_plain(cuda, n, c, hw):
         torch.testing.assert_close(dx.float(), dx32, rtol=1e-2, atol=1e-2)
         assert torch.equal(out, psa.psa_softmax_bmm_wgmma(x, a, 1.3))
         assert torch.equal(dx, psa.psa_softmax_bmm_bwd_dx_wgmma(x, a, g, m, l, 1.3))
-        simt = psa._forward_simt(x, a, 1.3, False, False)
-        assert (simt - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
-        sdx = psa._bwd_dx_simt(x, a, g, m, l, 1.3)
-        mx = dx32.abs().max().item()
-        assert (sdx.float() - dx32.to(torch.bfloat16).float()).abs().max().item() <= (
-            2.0 ** (np.floor(np.log2(mx)) - 7))
 
 
 @pytest.mark.parametrize("n,c,hw", [
@@ -245,8 +238,8 @@ def test_wgmma_da_matches_plain(cuda, n, c, hw):
     """The tensor-core da on bf16 operands: element by element within
     ``_da_bars`` of the plain f32 da, within one bf16 ulp of max|plain|
     of its bf16 plain version (the same rounding of g, sums in another
-    order); two calls bit-identical; one launch of it through the entry
-    point and none of the SIMT da."""
+    order); two calls bit-identical; one launch of it through one call of
+    the entry point."""
     g0 = torch.Generator(device=cuda).manual_seed(hw + 5)
     x = torch.randn(n, c, hw, generator=g0, device=cuda).to(torch.bfloat16)
     a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(torch.bfloat16)
@@ -257,7 +250,7 @@ def test_wgmma_da_matches_plain(cuda, n, c, hw):
         da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
         torch.cuda.synchronize()
         assert (psa.psa_softmax_bmm_bwd_da_wgmma.launches,
-                psa.psa_softmax_bmm_bwd_da.launches) == (before[0] + 1, before[1])
+                psa.psa_softmax_bmm_bwd_da.launches) == (before[0] + 1, before[1] + 1)
         assert da.dtype == torch.bfloat16 and da.shape == a.shape
         da32 = psa.psa_softmax_bmm_bwd_da_reference(x.float(), a.float(), g, m, l, out, 1.3)
         assert ((da.float() - da32).abs() <= _da_bars(x, a, g, m, l, da32, 1.3)).all()
@@ -337,8 +330,8 @@ def test_tf32x3_kernels_match_plain(cuda, n, c, hw):
 
 def test_f32_entry_points_run_the_tf32x3_kernels(cuda):
     """float32 operands: the resident forward, dx and da entry points (and
-    autograd through them) launch the 3xTF32 kernels, never the SIMT
-    resident forward, da or dx."""
+    autograd through them, which calls them) launch the 3xTF32 kernels, once
+    a call, never the bf16 ones."""
     g0 = torch.Generator(device=cuda).manual_seed(12)
     x = torch.randn(2, 16, 70, generator=g0, device=cuda).requires_grad_()
     a = (torch.randn(2, 70, 70, generator=g0, device=cuda) * 3).requires_grad_()
@@ -354,7 +347,7 @@ def test_f32_entry_points_run_the_tf32x3_kernels(cuda):
         psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3)
         psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2, 0, 0, 0, 0, 0, 0]
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2, 2, 2, 2, 0, 0, 0]
 
 
 def test_tf32x3_kernels_reject_what_they_do_not_take(cuda):
@@ -417,7 +410,7 @@ def _da_f32_bars(x, a, g, m, l, out, norm):
 ])
 def test_f32_da_runs_the_tf32x3_kernel(cuda, n, c, hw):
     """float32 operands run da on the tensor cores as 3xTF32: its counter
-    moves, the SIMT and bf16 ones do not; within 1e-4 * max|plain| + 1e-5
+    and the entry point's move, the bf16 one does not; within 1e-4 * max|plain| + 1e-5
     of the plain f32 da and of its own plain version; element by element
     within ``_da_f32_bars`` against float64, which a single TF32 pass
     (x and g rounded to TF32, f32 sums) fails; two calls bit-identical."""
@@ -432,7 +425,7 @@ def test_f32_da_runs_the_tf32x3_kernel(cuda, n, c, hw):
         before = [f.launches for f in counters]
         da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
         torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0]
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0]
         assert da.dtype == torch.float32 and da.shape == a.shape
         for want in (psa.psa_softmax_bmm_bwd_da_reference(x, a, g, m, l, out, 1.3),
                      psa.psa_softmax_bmm_bwd_da_tf32x3_reference(x, a, g, m, l, out, 1.3)):
@@ -443,6 +436,84 @@ def test_f32_da_runs_the_tf32x3_kernel(cuda, n, c, hw):
                                                          psa.tf32_split(g)[0], m, l, out, 1.3)
         assert not ((one_pass.double() - want64).abs() <= bar).all()
         assert torch.equal(da, psa.psa_softmax_bmm_bwd_da_tf32x3(x, a, g, m, l, out, 1.3))
+
+
+@pytest.mark.parametrize("n,c,hw", [
+    (2, 7, 37),       # ragged C and hw
+    (1, 512, 7921),   # shrink 1, the flash forward's path
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_forward_routes_to_the_tensor_cores(cuda, n, c, hw, dtype):
+    """The flash forward entry point on CUDA runs the tensor-core forward of
+    the dtype: its own counter and that kernel's move once a call, the other
+    kernel's not; out, m and l bit-identical to the resident entry point's,
+    with and without the statistics, and under grad."""
+    g0 = torch.Generator(device=cuda).manual_seed(hw + 3)
+    x = torch.randn(n, c, hw, generator=g0, device=cuda).to(dtype)
+    a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(dtype)
+    bf16 = dtype == torch.bfloat16
+    kernel, other = ((psa.psa_softmax_bmm_wgmma, psa.psa_softmax_bmm_tf32x3) if bf16
+                     else (psa.psa_softmax_bmm_tf32x3, psa.psa_softmax_bmm_wgmma))
+    with torch.no_grad():
+        res, rm, rl = psa.psa_softmax_bmm(x, a, 1.3, return_stats=True)
+        counters = (psa.psa_softmax_bmm_flash, kernel, other, psa.psa_softmax_bmm)
+        before = [f.launches for f in counters]
+        out, m, l = psa.psa_softmax_bmm_flash(x, a, 1.3, return_stats=True)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0]
+        assert torch.equal(out, res) and torch.equal(m, rm) and torch.equal(l, rl)
+        assert torch.equal(psa.psa_softmax_bmm_flash(x, a, 1.3), res)
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        assert torch.equal(psa.psa_softmax_bmm_flash(xr, a, 1.3).detach(), res)
+
+
+class _ZoomStub(torch.nn.Module):
+    """A bf16 model stub with a zoomed head (``tests/test_torch_evaluator.py``
+    holds the same stub to JAX on the CPU)."""
+
+    dtype = torch.bfloat16
+    zoom_factor = 8
+
+    def forward(self, x, zoom=True):
+        from semseg_torch.ops.resize import resize_bilinear_align_corners_cf
+
+        h, w = x.shape[-2], x.shape[-1]
+        f = x[:, :, ::8, ::8].to(self.dtype)
+        m = f.mean(dim=1, keepdim=True)
+        logits = torch.cat([m, 0.5 - m, 0.25 * m + 0.1], dim=1)
+        if zoom:
+            logits = resize_bilinear_align_corners_cf(
+                logits, ((h - 1) // 8 * 8 + 1, (w - 1) // 8 * 8 + 1))
+        return logits
+
+
+def test_multiscale_evaluator_on_cuda(cuda):
+    """Two scales on CUDA with a bf16 stub: the fused stitch kernel once per
+    chunk of each scale's grid (counted from ``_scaled_size`` and
+    ``_grid_coords``), and ``predict_probs`` bit for bit the float32 mean of
+    the single-scale evaluators' maps."""
+    from semseg_torch.engine.evaluator import SlidingWindowEvaluator, _grid_coords, _scaled_size
+
+    kw = dict(classes=3, crop_h=33, crop_w=33, mean=[0.5, 0.5, 0.5], std=[1.0, 1.0, 1.0],
+              base_size=97, flip=True, window_batch=4, device=cuda)
+    image = (np.random.RandomState(4).rand(61, 97, 3) * 2.0).astype(np.float32)
+    scales = [0.5, 1.25]
+    ev = SlidingWindowEvaluator(_ZoomStub(), scales=scales, **kw)
+    assert ev.fused_stitch
+    chunks = 0
+    for s in scales:
+        nh, nw = _scaled_size(61, 97, s, 97)
+        windows = len(_grid_coords(max(nh, 33), max(nw, 33), 33, 33, 2 / 3))
+        chunks += -(-windows // 2)  # window_batch 4 under flip: 2 windows a chunk
+    before = stitch.upsample_softmax_flip.launches
+    probs = ev.predict_probs(image)
+    torch.cuda.synchronize()
+    assert stitch.upsample_softmax_flip.launches - before == chunks
+    maps = [SlidingWindowEvaluator(_ZoomStub(), scales=[s], **kw).predict_probs(image)
+            for s in scales]
+    np.testing.assert_array_equal(probs, (maps[0] + maps[1]) / np.float32(2))
+    np.testing.assert_array_equal(ev.predict(image), (maps[0] + maps[1]).argmax(-1))
 
 
 def test_psa_kernels_reject_what_they_do_not_take(cuda):
@@ -472,8 +543,8 @@ def test_psa_kernels_reject_what_they_do_not_take(cuda):
 def test_psanet_slice_on_cuda(cuda):
     """A small bf16 PSANet50 through build_evaluator: per chunk the stitch
     kernel once and the tensor-core resident forward twice (two
-    directions), the SIMT one never; the probabilities agree with the
-    plain attention."""
+    directions, two calls of the entry point), the flash route never; the
+    probabilities agree with the plain attention."""
     from types import SimpleNamespace
 
     from semseg_torch.serve import build_evaluator
@@ -492,8 +563,9 @@ def test_psanet_slice_on_cuda(cuda):
                 psa.psa_softmax_bmm_flash)
     before = [f.launches for f in counters]
     fused = ev.predict_probs(image)
-    n_chunks = len(ev._geometry(128, 256).chunks)
-    assert [f.launches - b for f, b in zip(counters, before)] == [n_chunks, 2 * n_chunks, 0, 0]
+    n_chunks = len(ev._geometry(128, 256, 1.0).chunks)
+    assert [f.launches - b for f, b in zip(counters, before)] == [
+        n_chunks, 2 * n_chunks, 2 * n_chunks, 0]
     ev.model.psa.fused_attention = False
     plain = ev.predict_probs(image)
     assert fused.shape == (128, 256, 19)
@@ -527,9 +599,8 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
     forward statistics; grads in the primal dtypes; two calls
     bit-identical. The flash backward's route is the same tensor-core dx
     and da from the flash forward's statistics: their counters move twice
-    (resident and route), the route's once, the fused SIMT flash
-    backward's never; the SIMT kernel, launched directly, counts on its own
-    and is still within the old bars."""
+    (resident and route), the route's once, and the resident entry points'
+    once each."""
     g0 = torch.Generator(device=cuda).manual_seed(hw + 1)
     x = torch.randn(n, c, hw, generator=g0, device=cuda).to(dtype)
     a = (torch.randn(n, hw, hw, generator=g0, device=cuda) * 3).to(dtype)
@@ -546,17 +617,15 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
                       else psa.psa_softmax_bmm_bwd_dx_tf32x3)
         da_counter = (psa.psa_softmax_bmm_bwd_da_wgmma if bf16
                       else psa.psa_softmax_bmm_bwd_da_tf32x3)
-        counters = (da_counter, dx_counter, psa.psa_softmax_bmm_flash_bwd, psa._flash_bwd_simt,
+        counters = (da_counter, dx_counter, psa.psa_softmax_bmm_flash_bwd,
                     psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm_bwd_dx)
         before = tuple(f.launches for f in counters)
         da = psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3)
         dx = psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3)
         fdx, fda = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout, 1.3)
         torch.cuda.synchronize()
-        assert tuple(f.launches - b for f, b in zip(counters, before)) == (2, 2, 1, 0, 0, 0)
-        sdx, sda = psa._flash_bwd_simt(x, a, g, fm, fl, fout, 1.3)
-        assert tuple(f.launches - b for f, b in zip(counters, before)) == (2, 2, 1, 1, 0, 0)
-        assert da.dtype == fda.dtype == dx.dtype == fdx.dtype == sda.dtype == sdx.dtype == dtype
+        assert tuple(f.launches - b for f, b in zip(counters, before)) == (2, 2, 1, 1, 1)
+        assert da.dtype == fda.dtype == dx.dtype == fdx.dtype == dtype
         want_dx, want_da = (dx32, da32) if dtype == torch.float32 else (
             dx32.to(dtype).float(), da32.to(dtype).float())
         bar_dx, bar_da = _bwd_bars(dtype, dx32, da32)
@@ -571,24 +640,20 @@ def test_psa_backward_kernels_match_plain(cuda, n, c, hw, dtype):
             for gdx, gda in ((dx, da), (fdx, fda)):
                 assert (gdx.float() - want_dx).abs().max().item() <= bar_dx
                 assert (gda.float() - want_da).abs().max().item() <= bar_da
-        assert (sdx.float() - want_dx).abs().max().item() <= bar_dx
-        assert (sda.float() - want_da).abs().max().item() <= bar_da
         assert torch.equal(da, psa.psa_softmax_bmm_bwd_da(x, a, g, m, l, out, 1.3))
         assert torch.equal(dx, psa.psa_softmax_bmm_bwd_dx(x, a, g, m, l, 1.3))
         again = psa.psa_softmax_bmm_flash_bwd(x, a, g, fm, fl, fout, 1.3)
         assert torch.equal(fdx, again[0]) and torch.equal(fda, again[1])
-        again = psa._flash_bwd_simt(x, a, g, fm, fl, fout, 1.3)
-        assert torch.equal(sdx, again[0]) and torch.equal(sda, again[1])
 
 
 @pytest.mark.parametrize("entry", ["psa_softmax_bmm", "psa_softmax_bmm_flash"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_psa_autograd_on_cuda(cuda, entry, dtype):
     """Autograd through the kernels: both paths launch the tensor-core da
-    and dx of the dtype once each (the flash path from the flash forward's
-    statistics, through the route, which counts once), never the SIMT da or
-    the fused SIMT flash backward;
-    gradients in the primal dtypes. f32: within the f32 bars of autograd of
+    and dx of the dtype once each (the resident path through the da entry
+    point, which counts once; the flash path from the flash forward's
+    statistics, through the route, which counts once); gradients in the
+    primal dtypes. f32: within the f32 bars of autograd of
     the plain forward. bf16: within ``_da_bars`` and ``_dx_bars`` of the
     plain backward from the kernels' own forward output and statistics."""
     fn = getattr(psa, entry)
@@ -600,11 +665,11 @@ def test_psa_autograd_on_cuda(cuda, entry, dtype):
     kind = "wgmma" if bf16 else "tf32x3"
     counters = (getattr(psa, f"psa_softmax_bmm_bwd_da_{kind}"),
                 getattr(psa, f"psa_softmax_bmm_bwd_dx_{kind}"),
-                psa.psa_softmax_bmm_bwd_da, psa._flash_bwd_simt, psa.psa_softmax_bmm_flash_bwd)
+                psa.psa_softmax_bmm_bwd_da, psa.psa_softmax_bmm_flash_bwd)
     before = [f.launches for f in counters]
     dx, da = torch.autograd.grad(fn(x, a, 2.0), (x, a), g)
     route = int(entry == "psa_softmax_bmm_flash")
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0, route]
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1 - route, route]
     assert dx.dtype == da.dtype == dtype
     with torch.no_grad():
         if bf16:
@@ -672,8 +737,8 @@ def test_entry_points_default_to_cuda(cuda):
 def test_psanet_train_step_on_cuda(cuda):
     """One bf16 PSANet50 train step at 97x97 crops through the Trainer:
     per step the tensor-core forward, da and dx twice each (two
-    directions), no SIMT kernel, no flash and no stitch kernel; finite
-    losses; every parameter moved."""
+    directions, through two calls of each resident entry point), no flash
+    and no stitch kernel; finite losses; every parameter moved."""
     from types import SimpleNamespace
 
     from semseg_torch.engine.optim import make_sgd
@@ -692,15 +757,15 @@ def test_psanet_train_step_on_cuda(cuda):
     images = torch.from_numpy(rs.randint(0, 256, (2, 97, 97, 3)).astype(np.uint8))
     labels = torch.from_numpy(rs.randint(0, 19, (2, 97, 97)).astype(np.uint8))
     counters = {"fwd": psa.psa_softmax_bmm_wgmma, "da": psa.psa_softmax_bmm_bwd_da_wgmma,
-                "dx": psa.psa_softmax_bmm_bwd_dx_wgmma, "simt_fwd": psa.psa_softmax_bmm,
-                "simt_da": psa.psa_softmax_bmm_bwd_da, "simt_dx": psa.psa_softmax_bmm_bwd_dx,
+                "dx": psa.psa_softmax_bmm_bwd_dx_wgmma, "entry_fwd": psa.psa_softmax_bmm,
+                "entry_da": psa.psa_softmax_bmm_bwd_da, "entry_dx": psa.psa_softmax_bmm_bwd_dx,
                 "flash": psa.psa_softmax_bmm_flash, "flash_bwd": psa.psa_softmax_bmm_flash_bwd,
                 "stitch": stitch.upsample_softmax_flip}
     start = {k: f.launches for k, f in counters.items()}
     metrics = tr.step(images, labels)
     torch.cuda.synchronize()
     got = {k: f.launches - start[k] for k, f in counters.items()}
-    assert got == {"fwd": 2, "da": 2, "dx": 2, "simt_fwd": 0, "simt_da": 0, "simt_dx": 0,
+    assert got == {"fwd": 2, "da": 2, "dx": 2, "entry_fwd": 2, "entry_da": 2, "entry_dx": 2,
                    "flash": 0, "flash_bwd": 0, "stitch": 0}
     assert np.isfinite(metrics["loss"].item()) and metrics["union"].sum().item() > 0
     for k, v in model.named_parameters():

@@ -1,8 +1,8 @@
 """The port's sliding-window evaluator against the JAX package's (device
-mode), on the CPU: the whole single-scale slice with PSPNet50 f32 and
-JAX-initialised weights, and the fused stitch path with a bf16 stub model
-(JAX runs its Pallas kernel in interpret mode, the port the kernel's plain
-version). JAX results are materialised before any torch compute.
+mode), on the CPU: the whole slice, single- and multi-scale, with PSPNet50
+f32 and JAX-initialised weights, and the fused stitch path with a bf16 stub
+model (JAX runs its Pallas kernel in interpret mode, the port the kernel's
+plain version). JAX results are materialised before any torch compute.
 """
 
 import jax
@@ -37,15 +37,13 @@ def psp():
     return jmodel, v, model.eval()
 
 
-@pytest.mark.parametrize("scale", [1.0, 0.75])
-def test_pspnet50_slice_matches_jax(psp, scale):
+def _check_pspnet50_slice(psp, scales):
     """f32 probs within 1e-4 abs (conv summation order through 50
     layers); the uint8 class map equal wherever the top two JAX probs
-    are more than 1e-4 apart. Scale 0.75 runs both half-pixel resizes
-    (image down, probs up) and the mean padding."""
+    are more than 1e-4 apart."""
     jmodel, v, model = psp
     kw = dict(classes=4, crop_h=33, crop_w=33, mean=MEAN, std=STD, base_size=57,
-              scales=[scale], flip=True, window_batch=4)
+              scales=scales, flip=True, window_batch=4)
     jev = jeval.SlidingWindowEvaluator(jmodel, v, mode="device", **kw)
     want_probs = np.asarray(jev.predict_probs(IMAGE))
     want_pred = np.asarray(jev.predict(IMAGE))
@@ -60,6 +58,20 @@ def test_pspnet50_slice_matches_jax(psp, scale):
     clear = (top2[..., 1] - top2[..., 0]) > 1e-4
     assert clear.mean() > 0.9
     np.testing.assert_array_equal(pred[clear], want_pred[clear])
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.75])
+def test_pspnet50_slice_matches_jax(psp, scale):
+    """Single scale; 0.75 runs both half-pixel resizes (image down, probs
+    up) and the mean padding."""
+    _check_pspnet50_slice(psp, [scale])
+
+
+def test_pspnet50_multiscale_matches_jax(psp):
+    """Two scales against ``_build_ms_argmax_raw`` and the f32 mean of
+    ``predict_probs``: 0.5 pads the 20x28 image to the 33 crop (one
+    window), 1.25 tiles 51x71 with six."""
+    _check_pspnet50_slice(psp, [0.5, 1.25])
 
 
 class _JaxZoomStub:
@@ -106,21 +118,51 @@ STUB_KW = dict(classes=3, crop_h=17, crop_w=17, mean=[0.5, 0.5, 0.5],
 STUB_IMAGE = (np.random.RandomState(4).rand(41, 57, 3) * 2.0).astype(np.float32)
 
 
-@pytest.mark.parametrize("scale", [0.75, 1.0])
-def test_fused_path_matches_jax(scale):
+def _check_fused_path(scales):
     """The fused path on both sides: JAX's Pallas kernel (interpret) and
     the port's plain version of its CUDA kernel. atol 2e-2 and argmax
     agreement > 0.995, the license of tests/test_stitch_pallas.py."""
     jev = jeval.SlidingWindowEvaluator(_JaxZoomStub(), {}, fused_stitch=True,
-                                       scales=[scale], mode="device", **STUB_KW)
+                                       scales=scales, mode="device", **STUB_KW)
     want = np.asarray(jev.predict_probs(STUB_IMAGE), np.float32)
 
     ev = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", fused_stitch=True,
-                                      scales=[scale], **STUB_KW)
+                                      scales=scales, **STUB_KW)
     assert ev.fused_stitch
     got = ev.predict_probs(STUB_IMAGE)
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=2e-2)
     assert (got.argmax(-1) == want.argmax(-1)).mean() > 0.995
+
+
+@pytest.mark.parametrize("scale", [0.75, 1.0])
+def test_fused_path_matches_jax(scale):
+    _check_fused_path([scale])
+
+
+def test_fused_path_multiscale_matches_jax():
+    _check_fused_path([0.5, 1.25])
+
+
+def test_multiscale_sums_bf16_maps_in_f32():
+    """A bf16 model's per-scale maps are bf16; the scales' sum is float32,
+    in scale order (the JAX package's ``eec3491``): ``predict_probs`` is,
+    bit for bit, the float32 mean of what single-scale evaluators give,
+    and ``predict`` the argmax of their float32 sum. A bf16 running sum
+    differs from it (so the check is not blind to that trap)."""
+    scales = [0.5, 0.75, 1.25]
+    kw = dict(STUB_KW, fused_stitch=True)
+    maps = [teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", scales=[s],
+                                         **kw).predict_probs(STUB_IMAGE) for s in scales]
+    total = maps[0].copy()
+    for m in maps[1:]:
+        total += m
+    ev = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", scales=scales, **kw)
+    np.testing.assert_array_equal(ev.predict_probs(STUB_IMAGE), total / np.float32(len(scales)))
+    np.testing.assert_array_equal(ev.predict(STUB_IMAGE), total.argmax(-1).astype(np.uint8))
+    bf16_sum = torch.from_numpy(maps[0]).to(torch.bfloat16)
+    for m in maps[1:]:
+        bf16_sum = bf16_sum + torch.from_numpy(m).to(torch.bfloat16)
+    assert not np.array_equal(bf16_sum.float().numpy(), total)
 
 
 def test_fused_matches_unfused_in_the_port():
@@ -142,8 +184,11 @@ def test_construction_rules():
                                      **dict(kw, flip=False))
     with pytest.raises(NotImplementedError):
         teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", mode="host", **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", **dict(kw, scales=[0.5, 1.0]))
+    # several scales run: one class map over the image
+    ms = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", **dict(kw, scales=[0.5, 1.0]))
+    assert ms.scales == [0.5, 1.0]
+    pred = ms.predict(STUB_IMAGE)
+    assert pred.shape == STUB_IMAGE.shape[:2] and pred.dtype == np.uint8
     with pytest.raises(ValueError):
         teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", mode="tpu", **kw)
     # device_bucketed (the server's default) runs the same pipeline
