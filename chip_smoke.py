@@ -7,7 +7,9 @@ flip TTA, bf16, ``window_batch`` 8) with PSPNet50 on 713x713 windows and
 PSANet50 (bi-direction, shrink 2, 89x89 mask) on 705x705 windows; PSANet50
 training (``config/cityscapes/cityscapes_psanet50.yaml``,
 bf16, batch 16, 705x705 crops) through ``semseg_torch.train.run`` on a
-seeded synthetic list-file dataset written under ``build/``. The CUDA
+seeded synthetic list-file dataset written under ``build/``; and the
+user's workflow through the drivers: train with validation, a preemption
+snapshot, resume, the test driver and the demo (phase 20). The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
 each (12 runs after 4):
 
@@ -95,7 +97,23 @@ each (12 runs after 4):
    exact ties of the mean); PSANet50 with ``fused_attention`` off against
    on: agreement >= 0.995, probabilities within 2e-2; images/s with the
    card's name and power limit; a ``torch.profiler`` window of one request
-   (idle share, top kernels in ``build/chip_smoke/``).
+   (idle share, top kernels in ``build/chip_smoke/``);
+20. drivers, the user's workflow on the 1024x2048 street data of phase 13:
+   ``semseg_torch.train.run`` of ``cityscapes_psanet50.yaml`` (bf16, batch
+   8, 705 crops, 16 training images: 2 steps an epoch, 2 epochs,
+   ``evaluate True`` on 4 images), uninterrupted, then stopped by the
+   preemption hook after step 3 and resumed with ``resume auto``: the
+   snapshot after step 3 and gone after the resumed epoch save, two epoch
+   files (keep-2), the resumed state equal to the uninterrupted run's bit
+   for bit, or else within twice the spread of a second uninterrupted run
+   that differs from the first; every train step launches the bf16 forward, da and
+   dx twice each, every validation batch the bf16 forward twice; finite
+   validation mIoU; checkpoint save, async save and restore seconds. Then
+   ``semseg_torch.test.run`` with the trained ``.pth`` over the 4 images
+   (f32, single scale, flip): gray and color PNGs, ``cal_acc``'s mIoU, the
+   3xTF32 forward 4 times an image, images/s beside ``predict`` alone; the
+   demo on one image, its gray PNG equal to the test driver's; the Python
+   and the native host loaders' images/s.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -112,6 +130,7 @@ Usage: ``python3 chip_smoke.py`` from the repository root.
 """
 
 import json
+import logging
 import re
 import shutil
 import subprocess
@@ -1312,6 +1331,243 @@ def phase_multiscale(dev, images, smi):
     return rates, by_model
 
 
+# Phase 20: per validation batch of the bf16 driver, one eval forward (two
+# directions); per 1024x2048 image of the f32 test driver, two chunks of
+# 4 windows and their flips through the 3xTF32 forward (two directions).
+DRIVER_VAL_BATCH = dict(psa_softmax_bmm_wgmma=2)
+DRIVER_TEST_IMAGE = dict(psa_softmax_bmm_tf32x3=4)
+
+
+def driver_cfg(root, save, **keys):
+    """``config/cityscapes/cityscapes_psanet50.yaml`` through the training
+    driver's parser: 16 training images (batch 8, 2 steps an epoch), 2
+    epochs, bf16, validation on 4 images, the test keys on the same 4."""
+    from semseg_torch.train import parse_args
+
+    root, save = Path(root), Path(save)
+    cfg = parse_args([
+        "--config", "config/cityscapes/cityscapes_psanet50.yaml",
+        "data_root", str(root), "train_list", str(root / "train16.txt"),
+        "val_list", str(root / "val4.txt"), "test_list", str(root / "val4.txt"),
+        "save_path", str(save), "save_folder", str(save / "result"), "train_gpu", "[0]",
+        "batch_size", "8", "epochs", "2", "evaluate", "True", "print_freq", "1",
+        "compute_dtype", "bfloat16", "manual_seed", "0"])
+    cfg.update(keys)
+    return cfg
+
+
+def host_state(trainer):
+    from semseg_torch.engine.checkpoint import host_snapshot
+
+    return host_snapshot(trainer.state_dict())
+
+
+def state_spread(a, b):
+    """``(equal, worst)``: whether two host states are equal bit for bit
+    (weights, BN statistics, momentum, step), and the largest relative L2
+    distance of one of their float tensors."""
+    pairs = [(a["state_dict"][k], b["state_dict"][k]) for k in a["state_dict"]]
+    pairs += [(v["momentum_buffer"], b["optimizer"]["state"][k]["momentum_buffer"])
+              for k, v in a["optimizer"]["state"].items()]
+    equal = a["step"] == b["step"] and all(torch.equal(x, y) for x, y in pairs)
+    worst = max(((x.double() - y.double()).norm() / y.double().norm().clamp_min(1e-30)).item()
+                for x, y in pairs if x.is_floating_point())
+    return equal, worst
+
+
+def phase_drivers(dev, root, smi):
+    """The user's workflow through the drivers on one GPU (phase 20):
+    train PSANet50 with validation (bf16, batch 8, 705 crops, 2 epochs of 2
+    steps on 16 street images, validation on 4), uninterrupted; a run
+    stopped by the preemption hook after step 3, then ``resume auto``, which
+    must end where the uninterrupted run ends: bit for bit, or else within
+    twice the spread of a second uninterrupted run (which must differ from
+    the first: a nondeterministic step).
+    Launches exact per train step and per validation batch; the checkpoint
+    files; save, async save and restore seconds. Then the f32 test driver
+    over the 4 images with the trained ``.pth`` (PNGs, mIoU, exact launches
+    per image, images/s beside ``predict`` alone), the demo on one of them
+    (its gray PNG equal to the test driver's), and the host loaders."""
+    import cv2
+
+    from semseg_torch import demo
+    from semseg_torch import test as ttest
+    from semseg_torch.data import native
+    from semseg_torch.engine import checkpoint as ckpt
+    from semseg_torch.train import build_train_loader, run
+    from semseg_torch.utils.misc import get_logger
+
+    root = Path(root)
+    lines = (root / "train.txt").read_text().splitlines()
+    (root / "train16.txt").write_text("\n".join(lines[:16]) + "\n")
+    (root / "val4.txt").write_text("\n".join(lines[16:20]) + "\n")
+    out = OUT_DIR / "drivers"
+    shutil.rmtree(out, ignore_errors=True)
+    logger = get_logger()
+    spe, val_batches = 2, 1  # steps an epoch; 4 validation images at batch_size_val 8
+    by_path = {"driver_train": launches(), "driver_val": launches()}
+
+    def counted_run(cfg, count):
+        """``run`` with every step's launches checked: TRAIN_STEP, plus
+        one validation's when an epoch closed since the previous step."""
+        prev = {"it": None}
+
+        def hook(it, metrics):
+            counts = read_counts()
+            val = prev["it"] is not None and prev["it"] % spe == 0
+            want = {k: TRAIN_STEP.get(k, 0) + val * val_batches * DRIVER_VAL_BATCH.get(k, 0)
+                    for k in counts}
+            check_counts(f"driver step {it}", counts, want)
+            if count:
+                for k in counts:
+                    by_path["driver_train"][k] += TRAIN_STEP.get(k, 0)
+                    by_path["driver_val"][k] += counts[k] - TRAIN_STEP.get(k, 0)
+            if not np.isfinite(metrics["loss"].item()):
+                raise AssertionError(f"driver step {it}: loss {metrics['loss'].item()}")
+            prev["it"] = it
+            reset_counts()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run(cfg, dev, logger=logger, step_hook=hook)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()  # the last epoch's validation, unless preempted
+        tail = launches() if res["preempt"] else launches(**{
+            k: val_batches * v for k, v in DRIVER_VAL_BATCH.items()})
+        check_counts("driver after the last step", counts, tail)
+        if count:
+            for k in counts:
+                by_path["driver_val"][k] += counts[k]
+        return res, seconds
+
+    full, full_s = counted_run(driver_cfg(root, out / "full"), True)
+    vals = [v["mIoU"] for v in full["val"]]
+    if len(full["val"]) != 2 or not all(np.isfinite(vals)):
+        raise AssertionError(f"validation results {full['val']}")
+    state_a = host_state(full["trainer"])
+    del full
+    pre, pre_s = counted_run(driver_cfg(root, out / "pre", _preempt_after_step=3), False)
+    snap = out / "pre" / "train_preempt.pth"
+    if not (pre["preempt"] == str(snap.resolve()) and snap.is_file()
+            and pre["trainer"].step_count == 3):
+        raise AssertionError(f"preemption: {pre['preempt']}, step {pre['trainer'].step_count}")
+    del pre
+    res, res_s = counted_run(driver_cfg(root, out / "pre", resume="auto"), False)
+    files = sorted(p.name for p in (out / "pre").glob("*.pth"))
+    if res["trainer"].step_count != 4 or snap.exists() or files != [
+            "train_epoch_1.pth", "train_epoch_2.pth"]:
+        raise AssertionError(f"resume: step {res['trainer'].step_count}, files {files}")
+    same_ra, dist = state_spread(host_state(res["trainer"]), state_a)
+    same_ab, spread = True, 0.0
+    if not same_ra:  # then the spread of two uninterrupted runs is the bar
+        again, _ = counted_run(driver_cfg(root, out / "again"), False)
+        same_ab, spread = state_spread(host_state(again["trainer"]), state_a)
+        del again
+        if same_ab or dist > 2 * spread:
+            raise AssertionError(f"resumed run vs uninterrupted: max relative L2 {dist} (two "
+                                 f"uninterrupted runs: equal {same_ab}, {spread})")
+
+    trainer = res["trainer"]
+    state = trainer.state_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(str(out / "timing"), 1, state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint_async(str(out / "timing"), 2, state)
+    async_s = time.perf_counter() - t0
+    ckpt.wait_pending()
+    async_total_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.load_state_dict(ckpt.load_checkpoint(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size_mb = Path(path).stat().st_size / 2 ** 20
+    log(f"[20 drivers] train PSANet50 bf16 705x705 batch 8, 2 epochs x 2 steps + validation "
+        f"of 4 images each epoch: {full_s:.2f} s through run() (first step included), val mIoU "
+        f"{[round(v, 4) for v in vals]}; preempted after step 3 in {pre_s:.2f} s, resumed to "
+        f"step 4 in {res_s:.2f} s; files {files}, snapshot gone; resumed vs uninterrupted: "
+        f"bit for bit {same_ra}, max relative L2 {dist:.3e}"
+        + ("" if same_ra else f" (two uninterrupted runs: {spread:.3e})")
+        + "; launches over the first run: train "
+        f"{by_path['driver_train']}, validation {by_path['driver_val']}")
+    log(f"[20 drivers] checkpoint {size_mb:.1f} MiB: save {save_s:.3f} s, async save returns in "
+        f"{async_s:.3f} s (written after {async_total_s:.3f} s), restore {load_s:.3f} s "
+        f"on {smi}")
+    del res, trainer, state
+    torch.cuda.empty_cache()
+
+    test_cfg = driver_cfg(root, out / "full", model_path=str(out / "full" / "train_epoch_2.pth"))
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    keep = Keep()
+    logger.addHandler(keep)
+    try:
+        reset_counts()
+        result = ttest.run(test_cfg, device=dev, logger=logger)
+        torch.cuda.synchronize()
+        test_counts = read_counts()
+    finally:
+        logger.removeHandler(keep)
+    n = result["images"]
+    check_counts("test driver", test_counts,
+                 {k: v * n for k, v in launches(**DRIVER_TEST_IMAGE).items()})
+    names = [Path(ln.split()[0]).stem for ln in lines[16:20]]
+    grays = {p.stem for p in (out / "full" / "result" / "gray").glob("*.png")}
+    colors = {p.stem for p in (out / "full" / "result" / "color").glob("*.png")}
+    if not (n == 4 and grays == colors == set(names) and result["metrics"] is not None
+            and all(np.isfinite(result["metrics"]))
+            and any(r.startswith("Eval result: mIoU") for r in records)):
+        raise AssertionError(f"test driver: {n} images, gray {grays}, color {colors}, "
+                             f"metrics {result['metrics']}")
+    images = [cv2.cvtColor(cv2.imread(str(root / ln.split()[0])), cv2.COLOR_BGR2RGB)
+              for ln in lines[16:20]]
+    ev = ttest.make_evaluator(test_cfg, ttest.load_model(test_cfg, dev, logger), dev, "device")
+    ev.predict(images[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for img in images:
+        ev.predict(img)
+    predict_s = time.perf_counter() - t0
+    del ev
+    torch.cuda.empty_cache()
+
+    demo_dir = out / "demo"
+    demo_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copy(root / lines[16].split()[0], demo_dir / f"{names[0]}.png")
+    gray = demo.run(driver_cfg(root, out / "full", model_path=test_cfg.model_path,
+                               image=str(demo_dir / f"{names[0]}.png")), device=dev, logger=logger)
+    want = cv2.imread(str(out / "full" / "result" / "gray" / f"{names[0]}.png"),
+                      cv2.IMREAD_GRAYSCALE)
+    if not np.array_equal(gray, want):
+        raise AssertionError(f"demo vs test driver: {int((gray != want).sum())} pixels differ")
+    log(f"[20 drivers] test driver, f32 PSANet50, 4 images 1024x2048, single scale, flip: "
+        f"{n / result['seconds']:.3f} images/s with its in-flight window (decode, PNG writes "
+        f"and the first image included), predict alone {len(images) / predict_s:.3f} images/s; "
+        f"mIoU/mAcc/allAcc {[round(v, 4) for v in result['metrics']]}; launches {test_counts}; "
+        f"gray and color PNGs for {sorted(grays)}; demo gray equal to the test driver's")
+
+    rates = {}
+    for want_native in (False, True):
+        loader, _ = build_train_loader(driver_cfg(root, out / "full", native_loader=want_native),
+                                       logger)
+        loader.set_epoch(0)
+        t0 = time.perf_counter()
+        count = sum(len(b[0]) for b in loader)
+        rates[loader.pipeline] = count / (time.perf_counter() - t0)
+    log(f"[20 drivers] host loader on the 16 training images (1024x2048, batch 8, "
+        f"{test_cfg.workers} threads): "
+        + ", ".join(f"{k} {v:.3f} images/s" for k, v in rates.items())
+        + ("" if "native" in rates else
+           f" (the native extension was not built: {str(native.build_error())[:300]})"))
+    return by_path, {"driver_test": test_counts}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1352,6 +1608,7 @@ def main():
     shrink1_train_counts = phase_grad_vs_plain(17, dev, 1, SHRINK1_TRAIN_STEP, timed=3)
     phase_psa_module_f32(dev)
     ms_rates, ms_counts = phase_multiscale(dev, images, smi)
+    train_paths, test_paths = phase_drivers(dev, Path("build") / "chip_smoke_data", smi)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -1369,7 +1626,7 @@ def main():
                "pspnet_train_steps": psp_train_counts, "psanet_f32_train_step": f32_counts,
                "psanet_shrink1_train_step": shrink1_train_counts,
                "pspnet_multiscale": ms_counts["PSPNet50"],
-               "psanet_multiscale": ms_counts["PSANet50"]}
+               "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]

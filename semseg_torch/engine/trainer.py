@@ -1,6 +1,7 @@
-"""The training step on one GPU.
+"""The training and validation steps on one GPU.
 
-Port of ``semseg_tpu/engine/trainer.py:42-203`` (``make_train_step``):
+Port of ``semseg_tpu/engine/trainer.py:42-232`` (``make_train_step``,
+``make_eval_step``):
 device normalisation of raw-pixel images, the label downscale for
 ``zoom_factor != 8``, main + ``aux_weight`` * aux cross-entropy with the
 DDP per-replica mean, backward, the poly LR installed before step k
@@ -12,7 +13,8 @@ Images arrive as the host loader emits them, NHWC ``[B, H, W, 3]``
 channels-first on the device. Dropout draws from one ``torch.Generator``
 on the model's device, reseeded every step from ``(rng_seed, step)``, the
 counterpart of JAX's ``fold_in(PRNGKey(seed), step)``; the two streams
-differ, so parity tests keep dropout off.
+differ, so parity tests keep dropout off. Restoring ``step_count``
+(:meth:`Trainer.load_state_dict`) restores the dropout stream.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from semseg_torch.engine.losses import nll_and_valid
+from semseg_torch.engine.losses import cross_entropy_sum, nll_and_valid
 from semseg_torch.engine.optim import poly_lr, set_lr
 from semseg_torch.models.layers import Dropout2d
 from semseg_torch.ops.resize import resize_bilinear_align_corners_cf
@@ -61,6 +63,29 @@ def replica_mean_ce(logits, labels, num_replicas: int, ignore_index: int):
     return (group_sum / group_cnt).mean()
 
 
+@torch.no_grad()
+def eval_step(model, images, labels, *, classes: int, ignore_label: int,
+              zoom_factor: int, normalize=None):
+    """Center-crop validation step (JAX ``make_eval_step``,
+    ``trainer.py:206-232``; reference ``tool/train.py:343-406``): an
+    eval-mode forward, for ``zoom_factor != 8`` the logits resized to the
+    labels (align corners), the CE sum and valid count, and argmax
+    histograms. Returns ``loss_sum``, ``valid_count`` and the
+    ``intersection``/``union``/``target`` histograms, on the device. The
+    caller sets the model's mode."""
+    device = next(model.parameters()).device
+    images = device_normalize(images.to(device, non_blocking=True), normalize)
+    labels = labels.to(device, non_blocking=True).long()
+    logits = model(images)
+    if zoom_factor != 8:
+        logits = resize_bilinear_align_corners_cf(logits, tuple(labels.shape[1:]))
+    loss_sum, count = cross_entropy_sum(logits, labels, ignore_label)
+    inter, union, target = intersection_and_union(logits.argmax(1), labels, classes,
+                                                  ignore_label)
+    return {"loss_sum": loss_sum, "valid_count": count, "intersection": inter,
+            "union": union, "target": target}
+
+
 def dropout_seed(rng_seed: int, step: int) -> int:
     """The per-step dropout seed, a function of ``(rng_seed, step)`` only."""
     return int(np.random.SeedSequence([rng_seed, step]).generate_state(1, np.uint64)[0] >> 1)
@@ -90,6 +115,30 @@ class Trainer:
         for m in model.modules():
             if isinstance(m, Dropout2d):
                 m.generator = self.generator
+
+    def state_dict(self) -> dict:
+        """``{"step", "state_dict", "optimizer"}``: what a checkpoint holds
+        (``engine/checkpoint.py``), live tensors on the model's device."""
+        return {"step": self.step_count, "state_dict": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore model, optimizer and step count (and with it the poly LR
+        and the dropout stream) from :meth:`state_dict` or a checkpoint."""
+        self.model.load_state_dict(state["state_dict"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step_count = int(state["step"])
+
+    def validate_step(self, images, labels):
+        """:func:`eval_step` on the trainer's model in eval mode; the model
+        goes back to train mode after."""
+        self.model.eval()
+        try:
+            return eval_step(self.model, images, labels, classes=self.classes,
+                             ignore_label=self.ignore_label, zoom_factor=self.zoom_factor,
+                             normalize=self.normalize)
+        finally:
+            self.model.train()
 
     def step(self, images, labels):
         """One iteration on a batch (tensors on any device; NHWC images,

@@ -18,6 +18,8 @@ import re
 import numpy as np
 import torch
 
+from semseg_torch.models.resnet import _ARCH
+
 
 def _tensor(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32))  # a copy: JAX arrays are read-only
@@ -121,3 +123,33 @@ def load_pth(path: str):
         ckpt = ckpt["state_dict"]
     return {k[len("module."):] if k.startswith("module.") else k: v
             for k, v in ckpt.items()}
+
+
+# ImageNet deep-base stem (reference ``model/resnet.py``) -> the segmentation
+# models' ``layer0`` Sequential.
+_IMAGENET_STEM = {"conv1": "layer0.0", "bn1": "layer0.1", "conv2": "layer0.3",
+                  "bn2": "layer0.4", "conv3": "layer0.6", "bn3": "layer0.7"}
+
+
+def backbone_from_imagenet_pth(path: str, layers: int):
+    """A deep-base ImageNet ResNet ``.pth`` (the reference's
+    ``initmodel/resnet{50,101,152}_v2.pth``) -> ``(state_dict, unused)``:
+    the backbone's entries under the segmentation models' ``layer0`` ..
+    ``layer4`` names, to load with ``strict=False`` over a fresh model, and
+    the keys it did not use. The classifier ``fc.*`` is ignored and not
+    listed. The counterpart of ``convert_imagenet_resnet`` +
+    ``load_pretrained_backbone`` (``semseg_tpu/models/convert.py:153``,
+    ``semseg_tpu/engine/checkpoint.py:272-314``); a file already in
+    ``layer0.*`` naming passes through."""
+    blocks = {f"layer{s}.{b}." for s, n in enumerate(_ARCH[layers][1], start=1)
+              for b in range(n)}
+    out, unused = {}, []
+    for key, value in load_pth(path).items():
+        head, _, rest = key.partition(".")
+        if head in _IMAGENET_STEM:
+            out[f"{_IMAGENET_STEM[head]}.{rest}"] = value
+        elif key.startswith("layer0.") or any(key.startswith(b) for b in blocks):
+            out[key] = value
+        elif head != "fc":
+            unused.append(key)
+    return out, sorted(unused)

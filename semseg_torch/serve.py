@@ -45,24 +45,21 @@ def build_evaluator(cfg, logger, dtype: torch.dtype = torch.float32,
     is the CUDA device and raises without one; the CPU only as
     ``device="cpu"``.
 
-    Weights come from ``cfg.model_path`` (a reference or port ``.pth``),
-    else from ``seed`` when ``allow_random_weights`` is set; anything else
-    raises."""
+    Weights come from ``cfg.model_path`` (a reference, DDP or port
+    ``.pth``, as ``engine/checkpoint.py::load_state_dict_any`` reads it; a
+    JAX checkpoint directory raises and names the exporter), else from
+    ``seed`` when ``allow_random_weights`` is set; anything else raises."""
+    from semseg_torch.engine.checkpoint import load_state_dict_any
     from semseg_torch.engine.evaluator import SlidingWindowEvaluator
     from semseg_torch.models.build import build_model
-    from semseg_torch.models.convert import load_pth
     from semseg_torch.utils.misc import resolve_device
 
     device = resolve_device(device)
     model = build_model(cfg, dtype=dtype, device=device, seed=seed)
     path = getattr(cfg, "model_path", None) or ""
-    if os.path.isfile(path) and path.endswith(".pth"):
-        model.load_state_dict(load_pth(path), strict=True)
+    if os.path.exists(path):
+        model.load_state_dict(load_state_dict_any(path), strict=True)
         logger.info("=> loaded checkpoint '%s'", path)
-    elif os.path.exists(path):
-        raise NotImplementedError(
-            f"'{path}': only .pth checkpoints load in the port so far "
-            "(orbax checkpoints: ROADMAP queue 1 item 9)")
     elif getattr(cfg, "allow_random_weights", None):
         logger.warning("serving RANDOM weights (allow_random_weights)")
     else:

@@ -1,5 +1,5 @@
 """Training entry point of the port: the one-GPU counterpart of
-``tool/train.py::run``.
+``tool/train.py::run`` (``tool/train.py:233-488``).
 
     python -m semseg_torch.train --config config/cityscapes/cityscapes_psanet50.yaml \\
         [KEY VALUE ...]
@@ -10,26 +10,44 @@ scale/rotate/blur/flip/crop augmentation, poly LR with the 10x head group,
 aux loss, ``epochs * len(loader)`` iterations, the reference's log lines
 (loss, main, aux, lr every ``print_freq`` steps; mIoU/mAcc/allAcc per
 epoch) and ``train_epoch_{k}.pth`` every ``save_freq`` epochs (reference
-state_dict names, with the optimizer state).
+state_dict names, with the optimizer state and the step; keep-2 rotation;
+written on a worker thread unless ``async_save: False``).
+
+Start-up loads, in the reference's order (``tool/train.py:262-319``): the
+ImageNet backbone (``pretrained``, default on, from ``initmodel`` or
+``initmodel/resnet{layers}_v2.pth``; a missing file warns and trains from
+the seeded init), then ``weight`` (merged strict=False), then ``resume``
+(a path, or ``auto``: the newest complete checkpoint under ``save_path``),
+which restores model, optimizer, step and epoch, and fast-forwards the
+loader past the batches of the epoch already consumed.
+
+SIGTERM and SIGUSR1 ask for a preemption snapshot (``train_preempt.pth``)
+at the next step boundary, after any save still in flight; then ``run``
+returns. ``resume auto`` continues from it exactly: augmentation is keyed
+per (seed, epoch, sample) and dropout per (seed, step). The config key
+``_preempt_after_step: N`` trips the same path after global step N (a test
+hook, set on the config object). ``evaluate: True`` validates on center
+crops of ``val_list`` after every epoch (``batch_size_val``; a trailing
+partial batch is padded with ignore labels).
 
 The host side is the port's own: configs parse with
-``semseg_torch.config`` and data comes from ``semseg_torch.data``
-(``SemData``, the train transforms, ``DataLoader``), copies of the JAX
-package's modules of the same names (numpy, cv2 and yaml; the port
-imports nothing of ``semseg_tpu``).
-
-Not ported yet (they raise): ``resume``, ``weight``, loading a pretrained
-backbone file, ``evaluate: True`` and the native loader (ROADMAP item 9).
-Training runs one replica: ``train_gpu`` beyond its first entry is logged
-and left unused (multi-GPU training is item 12). Without the pretrained
-file the backbone trains from its seeded init, as ``tool/train.py`` does
-with a warning.
+``semseg_torch.config`` and data comes from ``semseg_torch.data``, copies
+of the JAX package's modules of the same names (numpy, cv2 and yaml; the
+port imports nothing of ``semseg_tpu``). Scalars go to
+``<save_path>/scalars.jsonl`` (the JAX driver's fallback writer; the
+tensorboard writer is not used). Training runs one replica: ``train_gpu``
+beyond its first entry is logged and left unused (multi-GPU training is
+ROADMAP item 12). ``native_loader: True`` decodes and augments in the
+native pipeline (``data/native.py``), built at first use. Not ported:
+``profile_dir``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
+import signal
 import time
 
 import numpy as np
@@ -45,29 +63,38 @@ def _get(cfg, key, default=None):
     return default if value is None else value
 
 
-def _unsupported(cfg, pretrained_path: str):
-    """Raise on what the port's training does not do yet."""
-    asked = [k for k in ("resume", "weight", "evaluate", "native_loader") if _get(cfg, k)]
-    if _get(cfg, "pretrained", True) and os.path.isfile(pretrained_path):
-        asked.append(f"pretrained ({pretrained_path})")
-    if asked:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(asked)} (ROADMAP queue 1 item 9)")
-
-
-def build_train_loader(cfg):
-    """The reference train pipeline (``tool/train.py:178-232``) on the
-    shared host modules. Images are NHWC float32, normalised on the host,
-    or raw pixels for ``image_wire_dtype: uint8`` (normalised on the
-    device). Returns ``(loader, normalize)``."""
-    from semseg_torch.data import DataLoader, SemData, Uint8Wire, transform
-
+def _wire(cfg):
     wire = _get(cfg, "image_wire_dtype", "float32")
     if wire not in WIRE_DTYPES:
         raise ValueError(f"image_wire_dtype must be float32/float16/uint8, got {wire}")
-    uint8 = wire == "uint8"
+    return wire
+
+
+def _finish(cfg, steps):
+    """The wire's tail of a transform list, and the dataset wrapper."""
+    from semseg_torch.data import Uint8Wire, transform
+
+    uint8 = _wire(cfg) == "uint8"
+    tail = [transform.ToTensor()]
+    if not uint8:
+        tail.append(transform.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD))
+    return transform.Compose(steps + tail), (Uint8Wire if uint8 else (lambda d: d))
+
+
+def build_train_loader(cfg, logger=None):
+    """The reference train pipeline (``tool/train.py:178-232``) on the
+    shared host modules, or on the native pipeline for ``native_loader:
+    True`` (``data/native.py``; when its extension cannot be built, a
+    warning and the Python pipeline, as ``tool/train.py:193-213``). Images
+    are NHWC float32, normalised on the host, or raw pixels for
+    ``image_wire_dtype: uint8`` (normalised on the device). Returns
+    ``(loader, normalize)``; ``loader.pipeline`` is ``"native"`` or
+    ``"python"``."""
+    from semseg_torch.data import DataLoader, SemData, transform
+
     ignore = cfg.ignore_label
-    train_transform = transform.Compose([
+    uint8 = _wire(cfg) == "uint8"
+    train_transform, wrap = _finish(cfg, [
         transform.RandScale([cfg.scale_min, cfg.scale_max]),
         transform.RandRotate([cfg.rotate_min, cfg.rotate_max], padding=IMAGENET_MEAN,
                              ignore_label=ignore),
@@ -75,24 +102,70 @@ def build_train_loader(cfg):
         transform.RandomHorizontalFlip(),
         transform.Crop([cfg.train_h, cfg.train_w], crop_type="rand",
                        padding=IMAGENET_MEAN, ignore_label=ignore),
-        transform.ToTensor(),
-    ] + ([] if uint8 else [transform.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD)]))
-    data = SemData(split="train", data_root=cfg.data_root, data_list=cfg.train_list,
-                   transform=train_transform)
-    if uint8:
-        data = Uint8Wire(data)
-    loader = DataLoader(data, batch_size=cfg.batch_size, shuffle=True,
+    ])
+    data, pipeline = None, "python"
+    if _get(cfg, "native_loader"):
+        from semseg_torch.data import native
+
+        if native.available():
+            data, pipeline = native.NativeSemData(
+                "train", cfg.data_root, cfg.train_list, crop_h=cfg.train_h,
+                crop_w=cfg.train_w, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                ignore_label=ignore, crop_type="rand", scale=(cfg.scale_min, cfg.scale_max),
+                rotate=(cfg.rotate_min, cfg.rotate_max), normalize=not uint8), "native"
+            if logger is not None:
+                logger.info("native (C++) host data pipeline enabled")
+        elif logger is not None:
+            logger.warning("native_loader requested but the extension could not be built "
+                           "(%s); falling back to the Python pipeline", native.build_error())
+    if data is None:
+        data = SemData(split="train", data_root=cfg.data_root, data_list=cfg.train_list,
+                       transform=train_transform)
+    loader = DataLoader(wrap(data), batch_size=cfg.batch_size, shuffle=True,
                         num_workers=cfg.workers, drop_last=True,
                         seed=_get(cfg, "manual_seed", 0))
+    loader.pipeline = pipeline
     return loader, ((IMAGENET_MEAN, IMAGENET_STD) if uint8 else None)
 
 
-def _to_device(loader, device, wire_dtype, labels_u8: bool):
+def build_val_loader(cfg):
+    """Center crops of ``val_list`` at the training crop size, in order,
+    ``batch_size_val`` a batch, the last batch partial
+    (``tool/train.py:234-254``)."""
+    from semseg_torch.data import DataLoader, SemData, transform
+
+    val_transform, wrap = _finish(cfg, [
+        transform.Crop([cfg.train_h, cfg.train_w], crop_type="center",
+                       padding=IMAGENET_MEAN, ignore_label=cfg.ignore_label),
+    ])
+    data = wrap(SemData(split="val", data_root=cfg.data_root, data_list=cfg.val_list,
+                        transform=val_transform))
+    return DataLoader(data, batch_size=cfg.batch_size_val, shuffle=False,
+                      num_workers=cfg.workers)
+
+
+def _pad_batch(images, labels, full, ignore_label):
+    """Pad a trailing partial batch to ``full`` samples: zero images with
+    ``ignore_label`` labels, which no loss or histogram counts
+    (``tool/train.py:660-677``)."""
+    n = images.shape[0]
+    if n == full:
+        return images, labels
+    images = np.concatenate([images, np.zeros((full - n,) + images.shape[1:], images.dtype)])
+    labels = np.concatenate(
+        [labels, np.full((full - n,) + labels.shape[1:], ignore_label, labels.dtype)])
+    return images, labels
+
+
+def _to_device(loader, device, wire_dtype, labels_u8: bool, stage=None):
     """Yield the loader's batches as tensors on ``device``, the next one
-    copied while the current one trains (pinned memory on CUDA)."""
+    copied while the current one trains (pinned memory on CUDA).
+    ``stage(images, labels)``, if given, rewrites each host batch first."""
     pin = torch.device(device).type == "cuda"
 
-    def stage(images, labels):
+    def put(images, labels):
+        if stage is not None:
+            images, labels = stage(images, labels)
         images = images.astype(wire_dtype, copy=False)  # uint8 arrives as uint8 (Uint8Wire)
         if labels_u8:
             labels = labels.astype(np.uint8)
@@ -104,7 +177,7 @@ def _to_device(loader, device, wire_dtype, labels_u8: bool):
 
     pending = None
     for images, labels in loader:
-        staged = stage(images, labels)
+        staged = put(images, labels)
         if pending is not None:
             yield pending
         pending = staged
@@ -112,10 +185,74 @@ def _to_device(loader, device, wire_dtype, labels_u8: bool):
         yield pending
 
 
+def _load_start(cfg, model, logger):
+    """The ImageNet backbone, then ``weight`` (``tool/train.py:262-299``)."""
+    from semseg_torch.engine.checkpoint import load_state_dict_any
+    from semseg_torch.models.convert import backbone_from_imagenet_pth
+
+    if _get(cfg, "pretrained", True):
+        init_path = _get(cfg, "initmodel", os.path.join("initmodel",
+                                                        f"resnet{cfg.layers}_v2.pth"))
+        if os.path.isfile(init_path):
+            logger.info("=> loading ImageNet-pretrained backbone '%s'", init_path)
+            sd, unused = backbone_from_imagenet_pth(init_path, cfg.layers)
+            _merge(model, sd, init_path, logger)
+            if unused:
+                logger.warning("unconverted pretrained keys: %s", unused)
+        else:
+            logger.warning("=> no pretrained backbone at '%s': training from the seeded "
+                           "init deviates from the reference recipe (set pretrained: False "
+                           "to silence)", init_path)
+    weight = _get(cfg, "weight")
+    if weight:
+        if os.path.exists(weight):
+            logger.info("=> loading weight '%s'", weight)
+            _merge(model, load_state_dict_any(weight), weight, logger)
+        else:
+            logger.info("=> no weight found at '%s'", weight)
+
+
+def _merge(model, state_dict, path, logger):
+    """Load ``state_dict`` over ``model`` where its keys exist (strict=False,
+    as ``tool/train.py::_merge``), logging the keys on either side that
+    found no partner."""
+    res = model.load_state_dict(state_dict, strict=False)
+    if res.missing_keys:
+        logger.info("=> %d model keys not in '%s' keep their values", len(res.missing_keys),
+                    path)
+    if res.unexpected_keys:
+        logger.warning("=> keys of '%s' the model lacks, ignored: %s", path,
+                       res.unexpected_keys[:8])
+
+
+def _resume(cfg, trainer, logger):
+    """``resume`` (a path or ``auto``) into ``trainer``; the start epoch."""
+    from semseg_torch.engine import checkpoint as ckpt
+
+    start_epoch = _get(cfg, "start_epoch", 0)
+    path = _get(cfg, "resume")
+    if not path:
+        return start_epoch
+    if path == "auto":
+        path = ckpt.latest_checkpoint(cfg.save_path)
+    if path and os.path.isfile(path):
+        logger.info("=> loading checkpoint '%s'", path)
+        payload = ckpt.load_checkpoint(path)
+        trainer.load_state_dict(payload)
+        start_epoch = int(payload["epoch"])
+        logger.info("=> loaded checkpoint (epoch %d, step %d)", start_epoch, trainer.step_count)
+    else:
+        logger.info("=> no checkpoint found at '%s'", _get(cfg, "resume"))
+    return start_epoch
+
+
 def run(cfg, device, logger=None, step_hook=None):
     """Train as ``cfg`` says on ``device``. ``step_hook(iteration,
     metrics)``, if given, is called after every step. Returns ``{"trainer":
-    the Trainer, "epochs": [per-epoch stats], "checkpoints": [paths]}``."""
+    the Trainer, "epochs": [per-epoch train stats], "val": [per-epoch
+    validation stats], "checkpoints": [epoch saves], "preempt": the
+    snapshot's path or None}``; every save has landed on disk by then."""
+    from semseg_torch.engine import checkpoint as ckpt
     from semseg_torch.engine.optim import make_sgd
     from semseg_torch.engine.trainer import Trainer
     from semseg_torch.models.build import build_model, compute_dtype, validate_arch
@@ -123,8 +260,6 @@ def run(cfg, device, logger=None, step_hook=None):
 
     logger = logger or get_logger()
     validate_arch(cfg)
-    _unsupported(cfg, _get(cfg, "initmodel", os.path.join(
-        "initmodel", f"resnet{cfg.layers}_v2.pth")))
     seed = _get(cfg, "manual_seed", 0)
     random.seed(seed)
     np.random.seed(seed)
@@ -138,10 +273,9 @@ def run(cfg, device, logger=None, step_hook=None):
     model = build_model(cfg, dtype=dtype, device=device, seed=seed, train=True)
     logger.info("=> creating model %s%d, classes %d, compute dtype %s, on %s",
                 cfg.arch, cfg.layers, cfg.classes, dtype, device)
-    if _get(cfg, "pretrained", True):
-        logger.warning("=> no pretrained backbone: training from the seeded init")
+    _load_start(cfg, model, logger)
 
-    loader, normalize = build_train_loader(cfg)
+    loader, normalize = build_train_loader(cfg, logger)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise ValueError(f"batch_size {cfg.batch_size} exceeds the {len(loader.dataset)} "
@@ -152,45 +286,114 @@ def run(cfg, device, logger=None, step_hook=None):
         classes=cfg.classes, ignore_label=cfg.ignore_label, aux_weight=cfg.aux_weight,
         base_lr=cfg.base_lr, max_iter=max_iter, power=cfg.power,
         zoom_factor=cfg.zoom_factor, rng_seed=seed, normalize=normalize)
+    start_epoch = _resume(cfg, trainer, logger)
+
+    # Mid-epoch resume: the step counts the batches of the epoch in progress
+    # already consumed; the loader skips them (tool/train.py:324-338).
+    start_batch = 0
+    consumed = trainer.step_count - start_epoch * steps_per_epoch
+    if consumed >= steps_per_epoch:  # snapshot taken at an epoch's end
+        start_epoch += consumed // steps_per_epoch
+        consumed %= steps_per_epoch
+    if consumed > 0:
+        start_batch = consumed
+        logger.info("=> mid-epoch resume: skipping %d consumed batches of epoch %d",
+                    consumed, start_epoch + 1)
+
+    val_loader = build_val_loader(cfg) if _get(cfg, "evaluate") else None
     check_makedirs(cfg.save_path)
-    wire = WIRE_DTYPES[_get(cfg, "image_wire_dtype", "float32")]
+    writer = _JsonlWriter(os.path.join(cfg.save_path, "scalars.jsonl"))
+    wire = WIRE_DTYPES[_wire(cfg)]
     labels_u8 = cfg.classes <= 255 and 0 <= cfg.ignore_label <= 255
+    preempt = {"flag": False, "after": _get(cfg, "_preempt_after_step")}
 
-    epochs, checkpoints = [], []
-    for epoch in range(_get(cfg, "start_epoch", 0), cfg.epochs):
-        loader.set_epoch(epoch)
-        stats = _train_epoch(cfg, logger, trainer, _to_device(loader, device, wire, labels_u8),
-                             epoch, steps_per_epoch, max_iter, step_hook)
-        epochs.append(stats)
-        if (epoch + 1) % cfg.save_freq == 0:
-            path = os.path.join(cfg.save_path, f"train_epoch_{epoch + 1}.pth")
-            torch.save({"epoch": epoch + 1, "state_dict": model.state_dict(),
-                        "optimizer": trainer.optimizer.state_dict()}, path)
-            logger.info("Saving checkpoint to: %s", path)
-            checkpoints.append(path)
-    return {"trainer": trainer, "epochs": epochs, "checkpoints": checkpoints}
+    def on_signal(signum, frame):
+        preempt["flag"] = True
+        logger.info("received signal %d: checkpointing at the next step boundary", signum)
+
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGUSR1):
+        try:
+            previous[sig] = signal.signal(sig, on_signal)
+        except ValueError:  # not the main thread
+            pass
+
+    result = {"trainer": trainer, "epochs": [], "val": [], "checkpoints": [], "preempt": None}
+    try:
+        for epoch in range(start_epoch, cfg.epochs):
+            first = start_batch if epoch == start_epoch else 0
+            loader.set_epoch(epoch, first)
+            stats = _train_epoch(cfg, logger, writer, trainer,
+                                 _to_device(loader, device, wire, labels_u8), epoch,
+                                 steps_per_epoch, max_iter, step_hook, first, preempt)
+            if stats.pop("preempted"):
+                ckpt.wait_pending()  # a snapshot waits for the save in flight
+                result["preempt"] = ckpt.save_preempt_checkpoint(
+                    cfg.save_path, epoch, trainer.state_dict())
+                logger.info("Preemption checkpoint saved to: %s", result["preempt"])
+                return result
+            result["epochs"].append(stats)
+            for key in ("loss", "mIoU", "mAcc", "allAcc"):
+                writer.add_scalar(f"{key}_train", stats[key], epoch + 1)
+            if (epoch + 1) % cfg.save_freq == 0:
+                save = (ckpt.save_checkpoint_async if _get(cfg, "async_save", True)
+                        else ckpt.save_checkpoint)
+                path = save(cfg.save_path, epoch + 1, trainer.state_dict(), cfg.save_freq)
+                logger.info("Saving checkpoint to: %s", path)
+                result["checkpoints"].append(path)
+            if val_loader is not None:
+                val = _validate(cfg, logger, trainer, val_loader, device, wire, labels_u8)
+                result["val"].append(val)
+                for key in ("loss", "mIoU", "mAcc", "allAcc"):
+                    writer.add_scalar(f"{key}_val", val[key], epoch + 1)
+        return result
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+        writer.close()
+        ckpt.wait_pending()  # raise an async save's error before returning
 
 
-def _train_epoch(cfg, logger, trainer, batches, epoch, steps_per_epoch, max_iter,
-                 step_hook):
+def _train_epoch(cfg, logger, writer, trainer, batches, epoch, steps_per_epoch, max_iter,
+                 step_hook, start_batch, preempt):
+    """One epoch from batch ``start_batch``. Step metrics stay on the
+    device until a ``print_freq`` boundary or the epoch's end, where they
+    are fetched, summed and written as per-step scalars."""
     from semseg_torch.utils.metrics import AverageMeter, summarize
 
     batch_time, data_time = AverageMeter(), AverageMeter()
-    totals = {}
+    totals, pending = {}, []
     steps = 0
+
+    def flush():
+        for it, m in pending:
+            host = {k: m[k].cpu().numpy() for k in ("main_loss", "intersection", "union",
+                                                     "target")}
+            for k, v in host.items():
+                totals[k] = totals[k] + v if k in totals else v
+            inter, union, target = host["intersection"], host["union"], host["target"]
+            writer.add_scalar("loss_train_batch", float(host["main_loss"]), it)
+            writer.add_scalar("mIoU_train_batch", float(np.mean(inter / (union + 1e-10))), it)
+            writer.add_scalar("mAcc_train_batch", float(np.mean(inter / (target + 1e-10))), it)
+            writer.add_scalar("allAcc_train_batch", float(inter.sum() / (target.sum() + 1e-10)),
+                              it)
+        pending.clear()
+
+    preempted = False
     end = time.time()
     for i, (images, labels) in enumerate(batches):
         data_time.update(time.time() - end)
         metrics = trainer.step(images, labels)
-        current_iter = epoch * steps_per_epoch + i + 1
         steps += 1
-        for k in ("main_loss", "intersection", "union", "target"):
-            totals[k] = totals[k] + metrics[k] if k in totals else metrics[k]
+        batch_idx = start_batch + i + 1  # within the epoch
+        current_iter = epoch * steps_per_epoch + batch_idx
+        pending.append((current_iter, metrics))
         if step_hook is not None:
             step_hook(current_iter, metrics)
         batch_time.update(time.time() - end)
         end = time.time()
-        if (i + 1) % cfg.print_freq == 0:
+        if batch_idx % cfg.print_freq == 0:
+            flush()
             remain = (max_iter - current_iter) * batch_time.avg
             t_m, t_s = divmod(int(remain), 60)
             t_h, t_m = divmod(t_m, 60)
@@ -199,16 +402,66 @@ def _train_epoch(cfg, logger, trainer, batches, epoch, steps_per_epoch, max_iter
                 "Epoch: [%d/%d][%d/%d] Data %.3f (%.3f) Batch %.3f (%.3f) "
                 "Remain %02d:%02d:%02d MainLoss %.4f AuxLoss %.4f Loss %.4f "
                 "Accuracy %.4f lr %.6f",
-                epoch + 1, cfg.epochs, i + 1, steps_per_epoch, data_time.val,
+                epoch + 1, cfg.epochs, batch_idx, steps_per_epoch, data_time.val,
                 data_time.avg, batch_time.val, batch_time.avg, t_h, t_m, t_s,
                 metrics["main_loss"].item(), metrics["aux_loss"].item(),
                 metrics["loss"].item(), accuracy, metrics["lr"])
-    hist = {k: totals[k].cpu().numpy() for k in ("intersection", "union", "target")}
-    m_iou, m_acc, all_acc = summarize(hist["intersection"], hist["union"], hist["target"])
+        if preempt["flag"] or (preempt["after"] is not None
+                               and current_iter >= int(preempt["after"])):
+            preempted = True
+            break
+    flush()
+    if not totals:
+        return {"loss": 0.0, "mIoU": 0.0, "mAcc": 0.0, "allAcc": 0.0, "steps": 0,
+                "preempted": preempted}
+    m_iou, m_acc, all_acc = summarize(totals["intersection"], totals["union"],
+                                      totals["target"])
     logger.info("Train result at epoch [%d/%d]: mIoU/mAcc/allAcc %.4f/%.4f/%.4f.",
-                epoch + 1, cfg.epochs, m_iou, m_acc, all_acc)
-    return {"loss": totals["main_loss"].item() / steps, "mIoU": m_iou, "mAcc": m_acc,
-            "allAcc": all_acc, "steps": steps}
+                    epoch + 1, cfg.epochs, m_iou, m_acc, all_acc)
+    return {"loss": float(totals["main_loss"]) / steps, "mIoU": m_iou, "mAcc": m_acc,
+            "allAcc": all_acc, "steps": steps, "preempted": preempted}
+
+
+def _validate(cfg, logger, trainer, loader, device, wire, labels_u8):
+    """Center-crop validation (``tool/train.py:680-724``): the eval step
+    over every batch, summed on the device, one fetch at the end; the
+    reference's log lines."""
+    from semseg_torch.utils.metrics import summarize
+
+    def pad(images, labels):
+        return _pad_batch(images, labels, cfg.batch_size_val, cfg.ignore_label)
+
+    acc = None
+    for images, labels in _to_device(loader, device, wire, labels_u8, stage=pad):
+        m = trainer.validate_step(images, labels)
+        acc = m if acc is None else {k: acc[k] + m[k] for k in acc}
+    if acc is None:
+        return {"loss": 0.0, "mIoU": 0.0, "mAcc": 0.0, "allAcc": 0.0}
+    acc = {k: v.cpu().numpy() for k, v in acc.items()}
+    inter, union, target = acc["intersection"], acc["union"], acc["target"]
+    m_iou, m_acc, all_acc = summarize(inter, union, target)
+    logger.info("Val result: mIoU/mAcc/allAcc %.4f/%.4f/%.4f.", m_iou, m_acc, all_acc)
+    iou = inter / (union + 1e-10)
+    accuracy = inter / (target + 1e-10)
+    for c in range(cfg.classes):
+        logger.info("Class_%d Result: iou/accuracy %.4f/%.4f.", c, iou[c], accuracy[c])
+    return {"loss": float(acc["loss_sum"]) / max(float(acc["valid_count"]), 1.0),
+            "mIoU": m_iou, "mAcc": m_acc, "allAcc": all_acc}
+
+
+class _JsonlWriter:
+    """Scalars as JSON lines (``tool/train.py:748-759``)."""
+
+    def __init__(self, path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self._f = open(path, "a")
+
+    def add_scalar(self, tag, value, step):
+        self._f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+        self._f.flush()
+
+    def close(self):
+        self._f.close()
 
 
 def parse_args(argv=None):

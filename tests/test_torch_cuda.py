@@ -770,3 +770,71 @@ def test_psanet_train_step_on_cuda(cuda):
     assert np.isfinite(metrics["loss"].item()) and metrics["union"].sum().item() > 0
     for k, v in model.named_parameters():
         assert v.grad is not None and not torch.equal(v.detach(), before[k]), k
+
+
+def _psanet_trainer(cuda, seed=0):
+    """A bf16 PSANet50 Trainer at 97x97 crops on the card, and a batch."""
+    from types import SimpleNamespace
+
+    from semseg_torch.engine.optim import make_sgd
+    from semseg_torch.engine.trainer import Trainer
+    from semseg_torch.models.build import build_model
+
+    cfg = SimpleNamespace(arch="psa", layers=50, classes=19, zoom_factor=8, train_h=97,
+                          train_w=97, psa_type=2, compact=0, shrink_factor=2,
+                          normalization_factor=1.0, psa_softmax=1)
+    model = build_model(cfg, dtype=torch.bfloat16, device=cuda, seed=seed, train=True)
+    tr = Trainer(model, make_sgd(model, 0.01), classes=19, ignore_label=255,
+                 aux_weight=0.4, base_lr=0.01, max_iter=10, power=0.9, zoom_factor=8,
+                 normalize=([123.675, 116.28, 103.53], [58.395, 57.12, 57.375]))
+    rs = np.random.RandomState(seed)
+    images = torch.from_numpy(rs.randint(0, 256, (2, 97, 97, 3)).astype(np.uint8))
+    labels = torch.from_numpy(rs.randint(0, 19, (2, 97, 97)).astype(np.uint8))
+    return tr, images, labels
+
+
+def test_checkpoint_of_cuda_tensors_round_trips(cuda, tmp_path):
+    """A checkpoint saved from a trainer on the card (weights, BN
+    statistics, momentum, step) loads with ``map_location="cpu"`` and
+    back into a trainer on the card, bit for bit; the next step then
+    matches the original's loss exactly."""
+    from semseg_torch.engine import checkpoint as ckpt
+
+    tr, images, labels = _psanet_trainer(cuda)
+    tr.step(images, labels)
+    path = ckpt.save_checkpoint(str(tmp_path), 1, tr.state_dict())
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    for k, v in tr.model.state_dict().items():
+        assert payload["state_dict"][k].device.type == "cpu"
+        assert torch.equal(payload["state_dict"][k], v.cpu()), k
+    other, _, _ = _psanet_trainer(cuda, seed=1)
+    other.load_state_dict(payload)
+    assert other.step_count == 1
+    for k, v in tr.model.state_dict().items():
+        assert other.model.state_dict()[k].device == v.device and torch.equal(
+            other.model.state_dict()[k], v), k
+    ours, theirs = tr.optimizer.state_dict()["state"], other.optimizer.state_dict()["state"]
+    for k in ours:
+        assert torch.equal(theirs[k]["momentum_buffer"], ours[k]["momentum_buffer"]), k
+    assert tr.step(images, labels)["loss"].item() == other.step(images, labels)["loss"].item()
+
+
+def test_async_save_holds_the_snapshotted_step(cuda, tmp_path):
+    """An async save taken before the next step runs on the card holds the
+    state of the step it snapshotted, not of the step after it."""
+    from semseg_torch.engine import checkpoint as ckpt
+
+    tr, images, labels = _psanet_trainer(cuda)
+    tr.step(images, labels)
+    want = ckpt.host_snapshot(tr.state_dict())
+    path = ckpt.save_checkpoint_async(str(tmp_path), 1, tr.state_dict())
+    tr.step(images, labels)  # runs while the write is in flight
+    torch.cuda.synchronize()
+    ckpt.wait_pending()
+    got = ckpt.load_checkpoint(path)
+    assert got["step"] == 1 and tr.step_count == 2
+    moved = 0
+    for k, v in want["state_dict"].items():
+        assert torch.equal(got["state_dict"][k], v), k
+        moved += not torch.equal(tr.model.state_dict()[k].cpu(), v)
+    assert moved > 0

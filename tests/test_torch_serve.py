@@ -102,7 +102,7 @@ def test_build_evaluator_weights(tmp_path):
     logger = get_logger()
     with pytest.raises(RuntimeError, match="no checkpoint"):
         serve.build_evaluator(_cfg(allow_random_weights=False), logger, device="cpu")
-    with pytest.raises(NotImplementedError, match=".pth"):
+    with pytest.raises(ValueError, match="export_format pth"):  # an orbax directory
         serve.build_evaluator(_cfg(model_path=str(tmp_path)), logger, device="cpu")
 
     # a DDP-style .pth loads strictly and is what gets served

@@ -457,8 +457,9 @@ def test_train_run_imports_no_jax(tmp_path):
 
 def test_train_run_and_refusals(tmp_path):
     """In process: the float32 wire, a step hook that sees every step, the
-    poly LR reaching its second step; what is not ported raises; ``main``
-    raises without CUDA."""
+    poly LR reaching its second step; a batch larger than the dataset
+    raises; ``main`` raises without CUDA. (``resume``, ``evaluate`` and
+    ``weight`` are held to the JAX driver in ``tests/test_torch_drivers.py``.)"""
     from semseg_torch import train
 
     _write_dataset(tmp_path)
@@ -470,9 +471,6 @@ def test_train_run_and_refusals(tmp_path):
     assert all(np.isfinite(loss) for _, _, loss in seen)
     stats = res["epochs"][0]
     assert stats["steps"] == 2 and 0.0 <= stats["mIoU"] <= 1.0
-    for key, value in (("resume", "x.pth"), ("evaluate", "True"), ("weight", "w.pth")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            train.run(train.parse_args(_train_args(tmp_path, key, value)), "cpu")
     with pytest.raises(ValueError, match="exceeds"):
         train.run(train.parse_args(_train_args(tmp_path, "batch_size", "8")), "cpu")
     if not torch.cuda.is_available():
