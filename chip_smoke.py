@@ -9,7 +9,8 @@ training (``config/cityscapes/cityscapes_psanet50.yaml``,
 bf16, batch 16, 705x705 crops) through ``semseg_torch.train.run`` on a
 seeded synthetic list-file dataset written under ``build/``; and the
 user's workflow through the drivers: train with validation, a preemption
-snapshot, resume, the test driver and the demo (phase 20). The CUDA
+snapshot, resume, the test driver and the demo (phase 20); and two DDP
+ranks sharing the card (phase 21). The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
 each (12 runs after 4):
 
@@ -113,7 +114,17 @@ each (12 runs after 4):
    (f32, single scale, flip): gray and color PNGs, ``cal_acc``'s mIoU, the
    3xTF32 forward 4 times an image, images/s beside ``predict`` alone; the
    demo on one image, its gray PNG equal to the test driver's; the Python
-   and the native host loaders' images/s.
+   and the native host loaders' images/s;
+21. data-parallel training as two ranks sharing the card over gloo
+   (named in the config: NCCL needs a device per rank): one f32 PSANet50
+   step at 705x705, global batch 4, as 2 DDP ranks against the
+   one-process ``Trainer(num_replicas=2)``, the state within ``DDP_K``
+   times the one-ulp floor measured here and the losses within 1e-5,
+   each rank launching the 3xTF32 forward, da and dx twice; then the bf16
+   driver through ``semseg_torch.train.spawn`` (``train_gpu [0, 0]``,
+   global batch 16, 3 steps): each rank's launches exact, one checkpoint
+   written and logged by rank 0 alone, peak memory a rank, images/s
+   beside phase 14's (not a scaling number).
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -129,6 +140,7 @@ on its own); the last line is
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
 
+import dataclasses
 import json
 import logging
 import re
@@ -1568,6 +1580,140 @@ def phase_drivers(dev, root, smi):
     return by_path, {"driver_test": test_counts}
 
 
+# Phase 21: two DDP ranks share the one card over gloo (NCCL needs a device
+# per rank, and the card's machine shows one). The f32 step's bar: the
+# relative L2 distance of every state entry to the one-process run (over
+# that run's change), max and median over the entries, within DDP_K times
+# the same distances of two one-process runs whose images differ by one
+# float32 ulp (``chip_probes/ddp_floor.py`` on the CPU: DDP at 1.03-1.17
+# times that floor).
+DDP_RANKS, DDP_K = 2, 3.0
+
+
+def ddp_driver_cfg(root, save):
+    """Phase 13's training config (bf16, batch 16, 705 crops, one epoch of
+    the 48 street images: 3 steps) over ``train_gpu: [0, 0]``: two ranks
+    on the card over gloo, named explicitly."""
+    cfg = train_cfg(root, 16)
+    cfg.update(train_gpu=[0] * DDP_RANKS, dist_backend="gloo", multiprocessing_distributed=True,
+               save_path=str(save))
+    return cfg
+
+
+def phase_ddp(dev, root, smi, one_rank_images_per_s):
+    """Data-parallel training as two ranks sharing the card (phase 21): one
+    f32 PSANet50 step at 705x705, global batch 4, as 2 DDP ranks against
+    the one-process ``Trainer(num_replicas=2)``, gated on the one-ulp floor
+    measured here, with each rank's launches exact; then the bf16 driver
+    through ``semseg_torch.train.spawn`` (phase 13's config, global batch
+    16, 3 steps): launches per rank, one checkpoint written by rank 0,
+    which alone logs; peak memory per rank and images/s. Returns the
+    launch counts by path and rank."""
+    import os
+
+    from semseg_torch.engine import checkpoint as ckpt
+    from semseg_torch.parallel import parity
+    from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
+    from semseg_torch.train import spawn
+
+    log(f"[21 ddp] {DDP_RANKS} ranks share the one card over gloo, named in the config: NCCL "
+        f"needs a device per rank and this machine shows {torch.cuda.device_count()}")
+    pairs = [street_sample(40 + s) for s in range(4)]
+    images = ((np.stack([p[0][:705, :705] for p in pairs]).astype(np.float32)
+               - np.float32(IMAGENET_MEAN)) / np.float32(IMAGENET_STD)).astype(np.float32)
+    labels = np.stack([p[1][:705, :705] for p in pairs])
+    spec = parity.StepSpec(cfg=psanet_cfg(), batches=[(images, labels)], base_lr=0.01,
+                           device="cuda")
+    t0 = time.perf_counter()
+    ref = parity.one_process_steps(spec, DDP_RANKS)
+    moved = dataclasses.replace(spec, batches=[
+        (np.nextafter(images, np.float32(np.inf)), labels)])
+    floor = parity.one_process_steps(moved, DDP_RANKS)
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parity.ddp_steps(spec, DDP_RANKS, timeout_s=400)
+    ddp_s = time.perf_counter() - t0
+    names = list(kernels())
+    by_path = {}
+    for r, res in enumerate(ranks):
+        counts = {k: res["launches"][0][k] for k in names}
+        check_counts(f"DDP f32 step, rank {r}", counts, launches(**F32_TRAIN_STEP))
+        by_path[f"ddp_f32_step_rank{r}"] = counts
+    check_counts("one-process f32 step", {k: ref["launches"][0][k] for k in names},
+                 launches(**F32_TRAIN_STEP))
+    d_floor = parity.relative_distances(floor["state"], ref["state"], ref["init"])
+    d_ddp = parity.relative_distances(ranks[0]["state"], ref["state"], ref["init"])
+    stats = {k: (max(d.values()), float(np.median(list(d.values()))))
+             for k, d in (("floor", d_floor), ("ddp", d_ddp))}
+    worst = max(d_ddp, key=d_ddp.get)
+    loss_rel = abs(ranks[0]["losses"][0][0] - ref["losses"][0][0]) / abs(ref["losses"][0][0])
+    ok = (ranks[0]["losses"] == ranks[1]["losses"] and loss_rel <= 1e-5
+          and all(np.isfinite(v) for v in d_ddp.values())
+          and stats["ddp"][0] <= DDP_K * stats["floor"][0]
+          and stats["ddp"][1] <= DDP_K * stats["floor"][1])
+    log(f"[21 ddp] f32 PSANet50 705x705 global batch 4, one step: 2 DDP ranks against the "
+        f"one-process Trainer(num_replicas=2): loss {ranks[0]['losses'][0][0]:.6f} vs "
+        f"{ref['losses'][0][0]:.6f} (rel {loss_rel:.2e}); state distance max "
+        f"{stats['ddp'][0]:.4f} ({worst}) median {stats['ddp'][1]:.4f}, one-ulp floor max "
+        f"{stats['floor'][0]:.4f} median {stats['floor'][1]:.4f} (bar {DDP_K} x floor) over "
+        f"{len(d_ddp)} entries; per-rank launches {by_path['ddp_f32_step_rank0']}; seconds: "
+        f"two one-process runs {one_s:.2f}, the 2-rank spawn {ddp_s:.2f}, rank steps "
+        f"{[round(r_['seconds'][0], 3) for r_ in ranks]}, peak "
+        f"{[round(r_['peak_gib'], 2) for r_ in ranks]} GiB a rank")
+    if not ok:
+        raise AssertionError(f"DDP f32 step against one process: losses {ranks[0]['losses']} "
+                             f"/ {ranks[1]['losses']} vs {ref['losses']}, distances {stats}")
+    del ref, floor, ranks
+    torch.cuda.empty_cache()
+
+    save = OUT_DIR / "ddp"
+    shutil.rmtree(save, ignore_errors=True)
+    save.mkdir(parents=True)
+    cfg = ddp_driver_cfg(root, save / "exp")
+    log_path = save / "ranks.log"
+    sys.stderr.flush()
+    saved_fd, fd = os.dup(2), os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 2)  # the ranks inherit the descriptor: their log lines go to the file
+    try:
+        t0 = time.perf_counter()
+        summaries = spawn(cfg, "cuda", timeout_s=600)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved_fd, 2)
+        os.close(fd)
+        os.close(saved_fd)
+    text = log_path.read_text()
+    steps = 48 // 16
+    for res in summaries:
+        counts = {k: res["launches"][k] for k in names}
+        check_counts(f"DDP bf16 driver, rank {res['rank']}", counts,
+                     {k: steps * v for k, v in launches(**TRAIN_STEP).items()})
+        by_path[f"ddp_bf16_driver_rank{res['rank']}"] = counts
+    files = sorted(p.name for p in (save / "exp").iterdir())
+    payload = ckpt.load_checkpoint(str(save / "exp" / "train_epoch_1.pth"))
+    if not ([r["steps"] for r in summaries] == [steps] * DDP_RANKS
+            and files == ["scalars.jsonl", "train_epoch_1.pth"]
+            and text.count("Saving checkpoint to") == 1 and text.count("MainLoss") == steps
+            and payload["step"] == steps
+            and not any(k.startswith("module.") for k in payload["state_dict"])):
+        raise AssertionError(f"DDP driver: steps {[r['steps'] for r in summaries]}, files "
+                             f"{files}, {text.count('Saving checkpoint to')} saves and "
+                             f"{text.count('MainLoss')} step lines logged (log {log_path})")
+    ends = summaries[0]["step_ends"]
+    rate = (steps - 1) * 16 / (ends[-1] - ends[0])
+    log(f"[21 ddp] bf16 driver, train_gpu [0, 0] over gloo, PSANet50 705x705 global batch 16 "
+        f"(8 a rank), {steps} steps through spawn() in {spawn_s:.2f} s (process start, build "
+        f"and loader included): {rate:.3f} images/s over steps 2-{steps} (two ranks sharing "
+        f"one card, not a scaling number; one process, phase 14: "
+        f"{one_rank_images_per_s or 'not measured'} images/s on a device-resident batch); peak "
+        f"{[round(r['peak_gib'], 2) for r in summaries]} GiB a rank; per-rank launches "
+        f"{by_path['ddp_bf16_driver_rank0']}; one checkpoint, written and logged by rank 0 "
+        f"alone, files {files}; on {smi}")
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1609,6 +1755,7 @@ def main():
     phase_psa_module_f32(dev)
     ms_rates, ms_counts = phase_multiscale(dev, images, smi)
     train_paths, test_paths = phase_drivers(dev, Path("build") / "chip_smoke_data", smi)
+    ddp_paths = phase_ddp(dev, Path("build") / "chip_smoke_data", smi, timing["images_per_s"])
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -1626,7 +1773,8 @@ def main():
                "pspnet_train_steps": psp_train_counts, "psanet_f32_train_step": f32_counts,
                "psanet_shrink1_train_step": shrink1_train_counts,
                "pspnet_multiscale": ms_counts["PSPNet50"],
-               "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths}
+               "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths,
+               **ddp_paths}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]

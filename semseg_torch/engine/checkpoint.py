@@ -25,7 +25,10 @@ The counterpart of ``semseg_tpu/engine/checkpoint.py`` without orbax:
   and names the JAX package's ``.pth`` exporter.
 
 A training state is the dict of ``Trainer.state_dict()``: ``{"step",
-"state_dict", "optimizer"}``.
+"state_dict", "optimizer"}``, whose state_dict is the model's own (never
+DDP's ``module.``). Over several DDP ranks the training driver saves on
+rank 0 alone and resolves ``latest_checkpoint`` there
+(``semseg_torch/train.py``).
 """
 
 from __future__ import annotations

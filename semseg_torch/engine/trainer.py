@@ -1,4 +1,5 @@
-"""The training and validation steps on one GPU.
+"""The training and validation steps, in one process or as one rank of a
+data-parallel group.
 
 Port of ``semseg_tpu/engine/trainer.py:42-232`` (``make_train_step``,
 ``make_eval_step``):
@@ -15,17 +16,31 @@ on the model's device, reseeded every step from ``(rng_seed, step)``, the
 counterpart of JAX's ``fold_in(PRNGKey(seed), step)``; the two streams
 differ, so parity tests keep dropout off. Restoring ``step_count``
 (:meth:`Trainer.load_state_dict`) restores the dropout stream.
+
+One process computes what ``make_train_step(num_replicas=N)`` computes
+with ``Trainer(num_replicas=N)``: the loss is the mean over N equal batch
+slices of each slice's valid-pixel mean (BatchNorm's groups are the
+model's, ``build_model(replicas=N)``). With a ``process_group`` the
+Trainer is one rank of a ``DistributedDataParallel`` run: its loss is the
+mean over its own batch, DDP averages the gradients over the ranks (the
+reference's ``tool/train.py:269-276``), the logged losses are the mean
+over the ranks and the histograms their sum (``tool/train.py:279-290``),
+in one collective without a host sync, and the dropout seed folds in the
+rank.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from semseg_torch.engine.losses import cross_entropy_sum, nll_and_valid
 from semseg_torch.engine.optim import poly_lr, set_lr
 from semseg_torch.models.layers import Dropout2d
 from semseg_torch.ops.resize import resize_bilinear_align_corners_cf
+from semseg_torch.parallel.dist import all_reduce_sum
 from semseg_torch.utils.metrics import intersection_and_union
 
 
@@ -86,19 +101,40 @@ def eval_step(model, images, labels, *, classes: int, ignore_label: int,
             "union": union, "target": target}
 
 
-def dropout_seed(rng_seed: int, step: int) -> int:
-    """The per-step dropout seed, a function of ``(rng_seed, step)`` only."""
-    return int(np.random.SeedSequence([rng_seed, step]).generate_state(1, np.uint64)[0] >> 1)
+def dropout_seed(rng_seed: int, step: int, rank: int = 0) -> int:
+    """The per-step dropout seed, a function of ``(rng_seed, step, rank)``
+    only: ranks draw different channel masks for their different samples,
+    and rank 0 draws what one process draws."""
+    entropy = [rng_seed, step] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
 class Trainer:
     """Owns the model (in train mode), its optimizer, the step counter and
-    the dropout generator; :meth:`step` is one training iteration."""
+    the dropout generator; :meth:`step` is one training iteration.
+    ``self.module`` is the model; ``self.model`` is what the step calls:
+    the model, or with a ``process_group`` the model wrapped in
+    ``DistributedDataParallel``, which by default broadcasts rank 0's
+    buffers (BatchNorm's running statistics) before every forward."""
 
     def __init__(self, model, optimizer, *, classes: int, ignore_label: int,
                  aux_weight: float, base_lr: float, max_iter: int, power: float,
-                 zoom_factor: int, rng_seed: int = 0, normalize=None):
-        self.model = model.train()
+                 zoom_factor: int, rng_seed: int = 0, normalize=None,
+                 num_replicas: int = 1, process_group=None):
+        if num_replicas < 1 or (num_replicas > 1 and process_group is not None):
+            raise ValueError(f"num_replicas={num_replicas} with a process group: a DDP "
+                             "rank's step holds one replica")
+        self.module = model.train()
+        self.model = self.module
+        self.group = process_group
+        self.rank = 0
+        self.num_replicas = num_replicas
+        if process_group is not None:
+            device = next(model.parameters()).device
+            self.rank = dist.get_rank()
+            self.model = DistributedDataParallel(
+                model, device_ids=[device] if device.type == "cuda" else None,
+                process_group=process_group)
         self.optimizer = optimizer
         self.classes = classes
         self.ignore_label = ignore_label
@@ -118,27 +154,29 @@ class Trainer:
 
     def state_dict(self) -> dict:
         """``{"step", "state_dict", "optimizer"}``: what a checkpoint holds
-        (``engine/checkpoint.py``), live tensors on the model's device."""
-        return {"step": self.step_count, "state_dict": self.model.state_dict(),
+        (``engine/checkpoint.py``), live tensors on the model's device; the
+        model's own names, never DDP's ``module.``."""
+        return {"step": self.step_count, "state_dict": self.module.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
         """Restore model, optimizer and step count (and with it the poly LR
         and the dropout stream) from :meth:`state_dict` or a checkpoint."""
-        self.model.load_state_dict(state["state_dict"], strict=True)
+        self.module.load_state_dict(state["state_dict"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.step_count = int(state["step"])
 
     def validate_step(self, images, labels):
-        """:func:`eval_step` on the trainer's model in eval mode; the model
-        goes back to train mode after."""
-        self.model.eval()
+        """:func:`eval_step` on the trainer's model in eval mode (the model
+        itself, outside DDP: no collective); the model goes back to train
+        mode after. The sums are this process's own."""
+        self.module.eval()
         try:
-            return eval_step(self.model, images, labels, classes=self.classes,
+            return eval_step(self.module, images, labels, classes=self.classes,
                              ignore_label=self.ignore_label, zoom_factor=self.zoom_factor,
                              normalize=self.normalize)
         finally:
-            self.model.train()
+            self.module.train()
 
     def step(self, images, labels):
         """One iteration on a batch (tensors on any device; NHWC images,
@@ -154,12 +192,11 @@ class Trainer:
 
         lr = poly_lr(self.base_lr, self.step_count, self.max_iter, self.power)
         set_lr(self.optimizer, lr)
-        self.generator.manual_seed(dropout_seed(self.rng_seed, self.step_count))
+        self.generator.manual_seed(dropout_seed(self.rng_seed, self.step_count, self.rank))
         self.model.train()
         logits, aux = self.model(images)
-        # One replica: DDP's per-replica mean is the batch's valid-pixel mean.
-        main_loss = replica_mean_ce(logits, labels, 1, self.ignore_label)
-        aux_loss = replica_mean_ce(aux, labels, 1, self.ignore_label)
+        main_loss = replica_mean_ce(logits, labels, self.num_replicas, self.ignore_label)
+        aux_loss = replica_mean_ce(aux, labels, self.num_replicas, self.ignore_label)
         loss = main_loss + self.aux_weight * aux_loss
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -169,6 +206,11 @@ class Trainer:
         with torch.no_grad():
             inter, union, target = intersection_and_union(
                 logits.argmax(1), labels, self.classes, self.ignore_label)
-        return {"loss": loss.detach(), "main_loss": main_loss.detach(),
-                "aux_loss": aux_loss.detach(), "lr": lr, "intersection": inter,
-                "union": union, "target": target}
+            losses = [loss.detach(), main_loss.detach(), aux_loss.detach()]
+            if self.group is not None:
+                world = dist.get_world_size(self.group)
+                *sums, inter, union, target = all_reduce_sum(
+                    [*losses, inter, union, target], self.group)
+                losses = [v / world for v in sums]
+        return {"loss": losses[0], "main_loss": losses[1], "aux_loss": losses[2], "lr": lr,
+                "intersection": inter, "union": union, "target": target}

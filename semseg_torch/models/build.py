@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from semseg_torch.models.layers import set_precision
+from semseg_torch.models.layers import set_batchnorm_replicas, set_precision
 from semseg_torch.models.psanet import PSANet
 from semseg_torch.models.pspnet import PSPNet
 from semseg_torch.utils.misc import resolve_device
@@ -65,16 +65,27 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
-                seed: int = 0, train: bool = False):
+                seed: int = 0, train: bool = False, replicas: int = 1,
+                process_group=None):
     """The model described by ``cfg`` on ``device`` (``None``: the CUDA
     device, raising without one; the CPU only as ``device="cpu"``), with
     seeded random weights (load a checkpoint over them to serve real ones), in eval mode,
     or in train mode with ``train``. float32 models run with TF32 off, or
     on for ``matmul_precision: high`` (``layers.set_precision``).
 
-    The port trains on one GPU, so there is one replica and BatchNorm takes
-    its moments over the whole batch: what ``sync_bn`` asks for, and what
-    ``sync_bn: False`` gives on one replica too."""
+    Train-mode BatchNorm follows ``sync_bn`` (default True) as JAX's
+    ``build_model(..., data_shards=replicas)`` does (``build.py:54-73``):
+    - with a ``process_group`` (one DDP rank of the group; ``replicas``
+      stays 1), ``sync_bn: True`` takes the moments over the batches of
+      every rank, and ``sync_bn: False`` over the rank's own batch, whose
+      running statistics DDP's ``broadcast_buffers`` replaces with rank
+      0's before every forward (JAX's group-0 rule);
+    - in one process, ``replicas`` is the number of equal batch slices the
+      batch stands for: ``sync_bn: True`` takes the moments over the whole
+      batch, ``sync_bn: False`` per slice (JAX's BN groups)."""
+    if replicas < 1 or (replicas > 1 and process_group is not None):
+        raise ValueError(f"replicas={replicas} with a process group: a DDP rank's model "
+                         "holds one replica")
     validate_arch(cfg)
     device = resolve_device(device)
     set_precision(dtype, getattr(cfg, "matmul_precision", None))
@@ -96,4 +107,10 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
             # None = auto (the CUDA kernels on CUDA); True/False force.
             fused_attention=getattr(cfg, "fused_attention", None), dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(seed))
+    sync_bn = getattr(cfg, "sync_bn", None)
+    sync_bn = True if sync_bn is None else bool(sync_bn)
+    if process_group is not None:
+        set_batchnorm_replicas(model, process_group=process_group if sync_bn else None)
+    elif not sync_bn:
+        set_batchnorm_replicas(model, groups=replicas)
     return model.to(device).train(train)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -46,19 +47,127 @@ class Conv2d(nn.Conv2d):
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose eval path is the JAX package's
     (``layers.py:142-145``): ``(x - mean) * rsqrt(var + eps) * weight +
-    bias`` in float32, cast back to the input dtype. Train mode is
-    PyTorch's own, on the float32 input: batch moments over (N, H, W),
-    running statistics with momentum 0.1 and the unbiased variance, as the
-    JAX ``BatchNorm`` reimplements (``layers.py:147-175``)."""
+    bias`` in float32, cast back to the input dtype. Train mode takes its
+    moments in float32 on the input, running statistics with momentum 0.1
+    and the unbiased variance, as the JAX ``BatchNorm``
+    (``layers.py:147-199``), in one of three forms (set by
+    :func:`set_batchnorm_replicas`):
+
+    - ``groups == 1`` and no ``process_group`` (the default): PyTorch's own
+      batch norm over (N, H, W) of the float32 input;
+    - ``groups > 1``: JAX's ``_grouped`` (``layers.py:177-199``), moments
+      per equal batch slice, running statistics from slice 0 with the
+      unbiased variance over its count; the one-process form of
+      ``sync_bn: False`` over ``groups`` replicas;
+    - a ``process_group``: moments over the batch of every rank of the
+      group, all-reduced as one float32 tensor (:class:`_SyncBatchNorm`);
+      the running variance's unbiased count is the global one (JAX
+      ``layers.py:151-166`` under ``axis_name``)."""
+
+    groups = 1
+    process_group = None
 
     def forward(self, x):
         if self.training:
+            if self.process_group is not None:
+                return self._synced(x)
+            if self.groups > 1:
+                return self._grouped(x)
             return super().forward(x.float()).to(x.dtype)
         shape = (1, -1, 1, 1)
         y = (x.float() - self.running_mean.view(shape)) * torch.rsqrt(
             self.running_var.view(shape) + self.eps
         )
         return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+    @torch.no_grad()
+    def _track(self, mean, var, count):
+        """Running statistics: momentum EMA of the mean and of the unbiased
+        variance over ``count`` samples."""
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var * (count / max(count - 1, 1)), alpha=m)
+        self.num_batches_tracked.add_(1)
+
+    def _grouped(self, x):
+        g, b = self.groups, x.shape[0]
+        if b % g:
+            raise ValueError(f"batch {b} not divisible by {g} BatchNorm groups")
+        xf = x.float().reshape(g, b // g, *x.shape[1:])
+        mean = xf.mean(dim=(1, 3, 4))  # [g, C]
+        var = (xf.square().mean(dim=(1, 3, 4)) - mean.square()).clamp_min(0.0)
+        self._track(mean[0].detach(), var[0].detach(), (b // g) * x.shape[2] * x.shape[3])
+        shape = (g, 1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        y = y * self.weight.view(1, 1, -1, 1, 1) + self.bias.view(1, 1, -1, 1, 1)
+        return y.reshape(x.shape).to(x.dtype)
+
+    def _synced(self, x):
+        y, mean, var = _SyncBatchNorm.apply(x.float(), self.weight, self.bias, self.eps,
+                                            self.process_group)
+        # Every rank holds an equal batch: the global count (JAX
+        # ``count = local_count * psum(1)``), known without a host sync.
+        count = x.shape[0] * x.shape[2] * x.shape[3] * dist.get_world_size(self.process_group)
+        self._track(mean, var, count)
+        return y.to(x.dtype)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Batch norm over the batches of every rank of a process group, in
+    JAX's arithmetic (``layers.py:151-166``): the forward all-reduces one
+    float32 tensor ``[sum x, sum x^2, count]`` and takes ``var = max(E[x^2]
+    - E[x]^2, 0)``; the backward all-reduces ``[sum dy, sum dy * xhat]``.
+    The returned weight and bias gradients are the rank's own sums, which
+    DDP averages over the ranks with every other gradient. One
+    ``all_reduce`` each way, which every backend runs on CPU and CUDA
+    tensors (gloo has no ``all_gather`` of CUDA tensors, which
+    ``torch.nn.SyncBatchNorm`` needs)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        local = x.shape[0] * x.shape[2] * x.shape[3]
+        stats = torch.cat([x.sum(dim=(0, 2, 3)), x.square().sum(dim=(0, 2, 3)),
+                           x.new_full((1,), float(local))])
+        dist.all_reduce(stats, group=group)
+        count = stats[2 * c]
+        mean = stats[:c] / count
+        var = (stats[c:2 * c] / count - mean.square()).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, -1, 1, 1)
+        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(xhat, invstd, weight, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        y = xhat * weight.view(shape) + bias.view(shape)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, weight, count = ctx.saved_tensors
+        c = xhat.shape[1]
+        sums = torch.cat([dy.sum(dim=(0, 2, 3)), (dy * xhat).sum(dim=(0, 2, 3))])
+        dbias, dweight = sums[:c].clone(), sums[c:].clone()
+        dist.all_reduce(sums, group=ctx.group)
+        shape = (1, -1, 1, 1)
+        mean_dy = (sums[:c] / count).view(shape)
+        mean_dy_xhat = (sums[c:] / count).view(shape)
+        dx = (dy - mean_dy - xhat * mean_dy_xhat) * (invstd * weight).view(shape)
+        return dx, dweight, dbias, None, None
+
+
+def set_batchnorm_replicas(model: nn.Module, groups: int = 1, process_group=None) -> None:
+    """Set every :class:`BatchNorm2d` of ``model`` to per-slice moments over
+    ``groups`` equal batch slices, or to moments synchronised over
+    ``process_group`` (not both)."""
+    if groups < 1:
+        raise ValueError(f"BatchNorm groups must be >= 1, got {groups}")
+    if groups > 1 and process_group is not None:
+        raise ValueError("BatchNorm takes batch groups or a process group, not both")
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.groups = int(groups)
+            m.process_group = process_group
 
 
 class Dropout2d(nn.Module):

@@ -1,11 +1,24 @@
-"""Training entry point of the port: the one-GPU counterpart of
-``tool/train.py::run`` (``tool/train.py:233-488``).
+"""Training entry point of the port: the counterpart of
+``tool/train.py::run`` (``tool/train.py:60-152,233-488``).
 
     python -m semseg_torch.train --config config/cityscapes/cityscapes_psanet50.yaml \\
         [KEY VALUE ...]
 
-trains on ``cuda:{train_gpu[0]}`` and raises without CUDA; tests call
-``run(cfg, device="cpu")``. The recipe is the reference's: random
+trains on ``cuda:{train_gpu[0]}`` when ``train_gpu`` lists one device, and
+raises without CUDA; tests call ``run(cfg, device="cpu")``. With more
+devices (or ``world_size`` nodes) and ``multiprocessing_distributed``, it
+starts one process per ``train_gpu`` entry (:func:`spawn`, the reference's
+``mp.spawn``, ``tool/train.py:102-119``), each a ``DistributedDataParallel``
+rank on ``cuda:{train_gpu[local]}`` over ``dist_backend`` (``nccl``; the
+configs' ``xla`` means ``nccl``; ``gloo`` when named, which lets ranks
+share a device). ``batch_size`` and ``batch_size_val`` are global: each
+rank loads its shard of every epoch (``order[rank::world]``) at
+``batch_size // world``, and a batch the rank count does not divide
+raises. ``sync_bn`` (default True) synchronises BatchNorm over the ranks;
+``False`` keeps each rank's moments, with rank 0's running statistics
+(``models/build.py``). Rank 0 alone logs, writes ``scalars.jsonl`` and
+writes checkpoints, which hold the model's own state_dict names; the
+logged losses are the mean over the ranks and the histograms their sum. The recipe is the reference's: random
 scale/rotate/blur/flip/crop augmentation, poly LR with the 10x head group,
 aux loss, ``epochs * len(loader)`` iterations, the reference's log lines
 (loss, main, aux, lr every ``print_freq`` steps; mIoU/mAcc/allAcc per
@@ -23,7 +36,10 @@ loader past the batches of the epoch already consumed.
 
 SIGTERM and SIGUSR1 ask for a preemption snapshot (``train_preempt.pth``)
 at the next step boundary, after any save still in flight; then ``run``
-returns. ``resume auto`` continues from it exactly: augmentation is keyed
+returns. Over several ranks the request is all-reduced (max) at every step
+boundary, so every rank stops at the same step, whichever rank the signal
+reached; :func:`spawn` passes a signal sent to the launching process on to
+its ranks. ``resume auto`` continues from it exactly: augmentation is keyed
 per (seed, epoch, sample) and dropout per (seed, step). The config key
 ``_preempt_after_step: N`` trips the same path after global step N (a test
 hook, set on the config object). ``evaluate: True`` validates on center
@@ -35,16 +51,15 @@ The host side is the port's own: configs parse with
 of the JAX package's modules of the same names (numpy, cv2 and yaml; the
 port imports nothing of ``semseg_tpu``). Scalars go to
 ``<save_path>/scalars.jsonl`` (the JAX driver's fallback writer; the
-tensorboard writer is not used). Training runs one replica: ``train_gpu``
-beyond its first entry is logged and left unused (multi-GPU training is
-ROADMAP item 12). ``native_loader: True`` decodes and augments in the
-native pipeline (``data/native.py``), built at first use. Not ported:
-``profile_dir``.
+tensorboard writer is not used). ``native_loader: True`` decodes and
+augments in the native pipeline (``data/native.py``), built at first use.
+Not ported: ``profile_dir``, ``model_parallel``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import random
 import signal
@@ -81,13 +96,22 @@ def _finish(cfg, steps):
     return transform.Compose(steps + tail), (Uint8Wire if uint8 else (lambda d: d))
 
 
-def build_train_loader(cfg, logger=None):
+def per_rank_batch(batch_size: int, world: int, key: str = "batch_size") -> int:
+    """A global batch's share of one of ``world`` ranks; a batch the rank
+    count does not divide raises (JAX ``tool/train.py:143-152``)."""
+    if batch_size % world:
+        raise ValueError(f"{key} {batch_size} not divisible by {world} ranks")
+    return batch_size // world
+
+
+def build_train_loader(cfg, logger=None, rank=0, world=1):
     """The reference train pipeline (``tool/train.py:178-232``) on the
     shared host modules, or on the native pipeline for ``native_loader:
     True`` (``data/native.py``; when its extension cannot be built, a
     warning and the Python pipeline, as ``tool/train.py:193-213``). Images
     are NHWC float32, normalised on the host, or raw pixels for
-    ``image_wire_dtype: uint8`` (normalised on the device). Returns
+    ``image_wire_dtype: uint8`` (normalised on the device). Rank ``rank``
+    of ``world`` loads its shard at ``batch_size // world``. Returns
     ``(loader, normalize)``; ``loader.pipeline`` is ``"native"`` or
     ``"python"``."""
     from semseg_torch.data import DataLoader, SemData, transform
@@ -121,17 +145,19 @@ def build_train_loader(cfg, logger=None):
     if data is None:
         data = SemData(split="train", data_root=cfg.data_root, data_list=cfg.train_list,
                        transform=train_transform)
-    loader = DataLoader(wrap(data), batch_size=cfg.batch_size, shuffle=True,
-                        num_workers=cfg.workers, drop_last=True,
-                        seed=_get(cfg, "manual_seed", 0))
+    loader = DataLoader(wrap(data), batch_size=per_rank_batch(cfg.batch_size, world),
+                        shuffle=True, num_workers=cfg.workers, drop_last=True,
+                        seed=_get(cfg, "manual_seed", 0), shard_index=rank, num_shards=world)
     loader.pipeline = pipeline
     return loader, ((IMAGENET_MEAN, IMAGENET_STD) if uint8 else None)
 
 
-def build_val_loader(cfg):
+def build_val_loader(cfg, rank=0, world=1):
     """Center crops of ``val_list`` at the training crop size, in order,
     ``batch_size_val`` a batch, the last batch partial
-    (``tool/train.py:234-254``)."""
+    (``tool/train.py:234-254``); rank ``rank`` of ``world`` loads its shard
+    at ``batch_size_val // world`` (``DistributedSampler``'s, which pads the
+    list to a multiple of ``world`` by repeating its first images)."""
     from semseg_torch.data import DataLoader, SemData, transform
 
     val_transform, wrap = _finish(cfg, [
@@ -140,8 +166,10 @@ def build_val_loader(cfg):
     ])
     data = wrap(SemData(split="val", data_root=cfg.data_root, data_list=cfg.val_list,
                         transform=val_transform))
-    return DataLoader(data, batch_size=cfg.batch_size_val, shuffle=False,
-                      num_workers=cfg.workers)
+    return DataLoader(data, batch_size=per_rank_batch(cfg.batch_size_val, world,
+                                                      "batch_size_val"),
+                      shuffle=False, num_workers=cfg.workers, shard_index=rank,
+                      num_shards=world)
 
 
 def _pad_batch(images, labels, full, ignore_label):
@@ -225,16 +253,21 @@ def _merge(model, state_dict, path, logger):
                        res.unexpected_keys[:8])
 
 
-def _resume(cfg, trainer, logger):
-    """``resume`` (a path or ``auto``) into ``trainer``; the start epoch."""
+def _resume(cfg, trainer, logger, control=None):
+    """``resume`` (a path or ``auto``) into ``trainer``; the start epoch.
+    Over several ranks, rank 0 resolves ``auto`` and ``control`` (a CPU
+    group) carries its answer to the others."""
     from semseg_torch.engine import checkpoint as ckpt
+    from semseg_torch.parallel.dist import broadcast_object
 
     start_epoch = _get(cfg, "start_epoch", 0)
     path = _get(cfg, "resume")
     if not path:
         return start_epoch
     if path == "auto":
-        path = ckpt.latest_checkpoint(cfg.save_path)
+        path = ckpt.latest_checkpoint(cfg.save_path) if trainer.rank == 0 else None
+        if control is not None:
+            path = broadcast_object(path, control)
     if path and os.path.isfile(path):
         logger.info("=> loading checkpoint '%s'", path)
         payload = ckpt.load_checkpoint(path)
@@ -246,36 +279,43 @@ def _resume(cfg, trainer, logger):
     return start_epoch
 
 
-def run(cfg, device, logger=None, step_hook=None):
-    """Train as ``cfg`` says on ``device``. ``step_hook(iteration,
-    metrics)``, if given, is called after every step. Returns ``{"trainer":
-    the Trainer, "epochs": [per-epoch train stats], "val": [per-epoch
-    validation stats], "checkpoints": [epoch saves], "preempt": the
-    snapshot's path or None}``; every save has landed on disk by then."""
+def run(cfg, device, logger=None, step_hook=None, process_group=None):
+    """Train as ``cfg`` says on ``device``: in this process, or as one DDP
+    rank of ``process_group`` (which every rank has joined; :func:`spawn`
+    starts them). ``step_hook(iteration, metrics)``, if given, is called
+    after every step. Returns ``{"trainer": the Trainer, "epochs":
+    [per-epoch train stats], "val": [per-epoch validation stats],
+    "checkpoints": [epoch saves], "preempt": the snapshot's path or
+    None}``; every save has landed on disk by then, on every rank."""
     from semseg_torch.engine import checkpoint as ckpt
     from semseg_torch.engine.optim import make_sgd
     from semseg_torch.engine.trainer import Trainer
     from semseg_torch.models.build import build_model, compute_dtype, validate_arch
+    from semseg_torch.parallel.dist import control_group
     from semseg_torch.utils.misc import check_makedirs, get_logger
 
-    logger = logger or get_logger()
+    rank, world = 0, 1
+    if process_group is not None:
+        rank = torch.distributed.get_rank(process_group)
+        world = torch.distributed.get_world_size(process_group)
+    logger = (logger or get_logger()) if rank == 0 else _quiet_logger()
     validate_arch(cfg)
     seed = _get(cfg, "manual_seed", 0)
     random.seed(seed)
     np.random.seed(seed)
     device = torch.device(device)
-    gpus = _get(cfg, "train_gpu", [])
-    if len(gpus) > 1:
-        logger.info("train_gpu lists %d devices; the port trains on one (%s)",
-                    len(gpus), device)
+    control = control_group(process_group) if process_group is not None else None
 
     dtype = compute_dtype(cfg)
-    model = build_model(cfg, dtype=dtype, device=device, seed=seed, train=True)
-    logger.info("=> creating model %s%d, classes %d, compute dtype %s, on %s",
-                cfg.arch, cfg.layers, cfg.classes, dtype, device)
+    model = build_model(cfg, dtype=dtype, device=device, seed=seed, train=True,
+                        process_group=process_group)
+    logger.info("=> creating model %s%d, classes %d, compute dtype %s, on %s%s",
+                cfg.arch, cfg.layers, cfg.classes, dtype, device,
+                f" and {world - 1} more ranks (sync_bn {_get(cfg, 'sync_bn', True)})"
+                if world > 1 else "")
     _load_start(cfg, model, logger)
 
-    loader, normalize = build_train_loader(cfg, logger)
+    loader, normalize = build_train_loader(cfg, logger, rank, world)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise ValueError(f"batch_size {cfg.batch_size} exceeds the {len(loader.dataset)} "
@@ -285,8 +325,9 @@ def run(cfg, device, logger=None, step_hook=None):
         model, make_sgd(model, cfg.base_lr, cfg.momentum, cfg.weight_decay),
         classes=cfg.classes, ignore_label=cfg.ignore_label, aux_weight=cfg.aux_weight,
         base_lr=cfg.base_lr, max_iter=max_iter, power=cfg.power,
-        zoom_factor=cfg.zoom_factor, rng_seed=seed, normalize=normalize)
-    start_epoch = _resume(cfg, trainer, logger)
+        zoom_factor=cfg.zoom_factor, rng_seed=seed, normalize=normalize,
+        process_group=process_group)
+    start_epoch = _resume(cfg, trainer, logger, control)
 
     # Mid-epoch resume: the step counts the batches of the epoch in progress
     # already consumed; the loader skips them (tool/train.py:324-338).
@@ -300,12 +341,15 @@ def run(cfg, device, logger=None, step_hook=None):
         logger.info("=> mid-epoch resume: skipping %d consumed batches of epoch %d",
                     consumed, start_epoch + 1)
 
-    val_loader = build_val_loader(cfg) if _get(cfg, "evaluate") else None
-    check_makedirs(cfg.save_path)
-    writer = _JsonlWriter(os.path.join(cfg.save_path, "scalars.jsonl"))
+    val_loader = build_val_loader(cfg, rank, world) if _get(cfg, "evaluate") else None
+    if rank == 0:
+        check_makedirs(cfg.save_path)
+        writer = _JsonlWriter(os.path.join(cfg.save_path, "scalars.jsonl"))
+    else:
+        writer = _NullWriter()
     wire = WIRE_DTYPES[_wire(cfg)]
     labels_u8 = cfg.classes <= 255 and 0 <= cfg.ignore_label <= 255
-    preempt = {"flag": False, "after": _get(cfg, "_preempt_after_step")}
+    preempt = {"flag": False, "after": _get(cfg, "_preempt_after_step"), "control": control}
 
     def on_signal(signum, frame):
         preempt["flag"] = True
@@ -319,6 +363,13 @@ def run(cfg, device, logger=None, step_hook=None):
             pass
 
     result = {"trainer": trainer, "epochs": [], "val": [], "checkpoints": [], "preempt": None}
+
+    def landed():
+        """Every save on disk; over several ranks, rank 0's seen by all."""
+        ckpt.wait_pending()
+        if control is not None:
+            torch.distributed.barrier(group=control)
+
     try:
         for epoch in range(start_epoch, cfg.epochs):
             first = start_batch if epoch == start_epoch else 0
@@ -328,24 +379,30 @@ def run(cfg, device, logger=None, step_hook=None):
                                  steps_per_epoch, max_iter, step_hook, first, preempt)
             if stats.pop("preempted"):
                 ckpt.wait_pending()  # a snapshot waits for the save in flight
-                result["preempt"] = ckpt.save_preempt_checkpoint(
-                    cfg.save_path, epoch, trainer.state_dict())
-                logger.info("Preemption checkpoint saved to: %s", result["preempt"])
+                path = ckpt.preempt_checkpoint_path(cfg.save_path)
+                if rank == 0:
+                    ckpt.save_preempt_checkpoint(cfg.save_path, epoch, trainer.state_dict())
+                    logger.info("Preemption checkpoint saved to: %s", path)
+                landed()
+                result["preempt"] = path
                 return result
             result["epochs"].append(stats)
             for key in ("loss", "mIoU", "mAcc", "allAcc"):
                 writer.add_scalar(f"{key}_train", stats[key], epoch + 1)
             if (epoch + 1) % cfg.save_freq == 0:
-                save = (ckpt.save_checkpoint_async if _get(cfg, "async_save", True)
-                        else ckpt.save_checkpoint)
-                path = save(cfg.save_path, epoch + 1, trainer.state_dict(), cfg.save_freq)
-                logger.info("Saving checkpoint to: %s", path)
+                path = ckpt.checkpoint_path(cfg.save_path, epoch + 1)
+                if rank == 0:
+                    save = (ckpt.save_checkpoint_async if _get(cfg, "async_save", True)
+                            else ckpt.save_checkpoint)
+                    save(cfg.save_path, epoch + 1, trainer.state_dict(), cfg.save_freq)
+                    logger.info("Saving checkpoint to: %s", path)
                 result["checkpoints"].append(path)
             if val_loader is not None:
                 val = _validate(cfg, logger, trainer, val_loader, device, wire, labels_u8)
                 result["val"].append(val)
                 for key in ("loss", "mIoU", "mAcc", "allAcc"):
                     writer.add_scalar(f"{key}_val", val[key], epoch + 1)
+        landed()
         return result
     finally:
         for sig, handler in previous.items():
@@ -359,6 +416,7 @@ def _train_epoch(cfg, logger, writer, trainer, batches, epoch, steps_per_epoch, 
     """One epoch from batch ``start_batch``. Step metrics stay on the
     device until a ``print_freq`` boundary or the epoch's end, where they
     are fetched, summed and written as per-step scalars."""
+    from semseg_torch.parallel.dist import any_rank
     from semseg_torch.utils.metrics import AverageMeter, summarize
 
     batch_time, data_time = AverageMeter(), AverageMeter()
@@ -406,8 +464,11 @@ def _train_epoch(cfg, logger, writer, trainer, batches, epoch, steps_per_epoch, 
                 data_time.avg, batch_time.val, batch_time.avg, t_h, t_m, t_s,
                 metrics["main_loss"].item(), metrics["aux_loss"].item(),
                 metrics["loss"].item(), accuracy, metrics["lr"])
-        if preempt["flag"] or (preempt["after"] is not None
-                               and current_iter >= int(preempt["after"])):
+        stop = preempt["flag"] or (preempt["after"] is not None
+                                   and current_iter >= int(preempt["after"]))
+        if preempt["control"] is not None:  # every rank stops at the same step
+            stop = any_rank(stop, preempt["control"])
+        if stop:
             preempted = True
             break
     flush()
@@ -424,19 +485,22 @@ def _train_epoch(cfg, logger, writer, trainer, batches, epoch, steps_per_epoch, 
 
 def _validate(cfg, logger, trainer, loader, device, wire, labels_u8):
     """Center-crop validation (``tool/train.py:680-724``): the eval step
-    over every batch, summed on the device, one fetch at the end; the
-    reference's log lines."""
+    over every batch, summed on the device (and over the ranks' shards),
+    one fetch at the end; the reference's log lines."""
+    from semseg_torch.parallel.dist import all_reduce_sum
     from semseg_torch.utils.metrics import summarize
 
     def pad(images, labels):
-        return _pad_batch(images, labels, cfg.batch_size_val, cfg.ignore_label)
+        return _pad_batch(images, labels, loader.batch_size, cfg.ignore_label)
 
     acc = None
     for images, labels in _to_device(loader, device, wire, labels_u8, stage=pad):
         m = trainer.validate_step(images, labels)
         acc = m if acc is None else {k: acc[k] + m[k] for k in acc}
-    if acc is None:
+    if acc is None:  # an empty list: so on every rank
         return {"loss": 0.0, "mIoU": 0.0, "mAcc": 0.0, "allAcc": 0.0}
+    if trainer.group is not None:
+        acc = dict(zip(acc, all_reduce_sum(list(acc.values()), trainer.group)))
     acc = {k: v.cpu().numpy() for k, v in acc.items()}
     inter, union, target = acc["intersection"], acc["union"], acc["target"]
     m_iou, m_acc, all_acc = summarize(inter, union, target)
@@ -447,6 +511,24 @@ def _validate(cfg, logger, trainer, loader, device, wire, labels_u8):
         logger.info("Class_%d Result: iou/accuracy %.4f/%.4f.", c, iou[c], accuracy[c])
     return {"loss": float(acc["loss_sum"]) / max(float(acc["valid_count"]), 1.0),
             "mIoU": m_iou, "mAcc": m_acc, "allAcc": all_acc}
+
+
+def _quiet_logger():
+    """The logger of a rank other than 0: it prints nothing."""
+    logger = logging.getLogger("semseg_torch.train.quiet")
+    logger.propagate = False
+    logger.setLevel(logging.CRITICAL + 1)
+    return logger
+
+
+class _NullWriter:
+    """The scalar writer of a rank other than 0."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
 
 
 class _JsonlWriter:
@@ -472,14 +554,95 @@ def parse_args(argv=None):
     return parse_config_args(argv, default_config="config/cityscapes/cityscapes_psanet50.yaml")
 
 
+def _rank_main(local_rank, cfg, device_type, backend, url, step_hook=None):
+    """One rank of :func:`spawn`: join the group, :func:`run` (with
+    ``step_hook`` after every step, if given), and return a summary
+    (``steps``, ``epochs``, ``val``, ``checkpoints``, ``preempt``, the
+    kernels' ``launches`` over the run, the host clock at every step's end,
+    ``seconds`` and, on CUDA, ``peak_gib``)."""
+    from semseg_torch.ops import launch_counters
+    from semseg_torch.parallel import dist as pdist
+
+    device = torch.device("cpu")
+    if device_type == "cuda":
+        device = pdist.rank_device(cfg, local_rank)
+        torch.cuda.set_device(device)
+    group = pdist.init_process_group(url, backend, pdist.global_rank(cfg, local_rank),
+                                     pdist.world_size(cfg))
+    try:
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        ends = []
+        t0 = time.perf_counter()
+
+        def on_step(it, metrics):
+            ends.append(time.perf_counter() - t0)
+            if step_hook is not None:
+                step_hook(it, metrics)
+
+        res = run(cfg, device, step_hook=on_step, process_group=group)
+        return {"rank": torch.distributed.get_rank(group), "device": str(device),
+                "steps": res["trainer"].step_count, "epochs": res["epochs"], "val": res["val"],
+                "checkpoints": res["checkpoints"], "preempt": res["preempt"],
+                "step_ends": ends, "seconds": time.perf_counter() - t0,
+                "launches": {k: fn.launches for k, fn in counters.items()},
+                "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                             if device_type == "cuda" else None)}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn(cfg, device="cuda", timeout_s=None, step_hook=None):
+    """Train as ``cfg`` says with one process per ``train_gpu`` entry on
+    this node (``world_size`` nodes in all; each node starts its own with
+    its ``rank``): DDP ranks on ``cuda:{train_gpu[local]}``, or on the CPU
+    for ``device="cpu"`` (then ``dist_backend`` must name gloo). Checks the
+    devices and the batch sizes, builds the CUDA kernels once (ranks would
+    race ``build_library`` into one directory), then starts the ranks (the
+    ``spawn`` start method) and waits for them, at most ``timeout_s``
+    (None: no limit); a rank that raises fails the call. While it waits,
+    SIGTERM and SIGUSR1 sent to this process are passed on to the ranks,
+    which snapshot at the same step (:func:`run`). ``step_hook``, a
+    picklable ``step_hook(iteration, metrics)``, runs on every rank after
+    every step. Returns each local rank's summary (:func:`_rank_main`)."""
+    from semseg_torch.parallel import dist as pdist
+
+    device_type = torch.device(device).type
+    backend = pdist.backend_name(cfg, device_type)
+    pdist.check_devices(cfg, backend, device_type)
+    world = pdist.world_size(cfg)
+    per_rank_batch(cfg.batch_size, world)
+    if _get(cfg, "evaluate"):
+        per_rank_batch(cfg.batch_size_val, world, "batch_size_val")
+    if device_type == "cuda":
+        from semseg_torch.ops._build import build_library
+
+        build_library("psa")
+    return pdist.spawn(_rank_main, pdist.local_processes(cfg),
+                       (cfg, device_type, backend, pdist.rendezvous_url(cfg), step_hook),
+                       timeout_s=timeout_s, forward_signals=(signal.SIGTERM, signal.SIGUSR1))
+
+
 def main(argv=None):
-    """Train on ``cuda:{train_gpu[0]}``. Without a CUDA device it raises;
+    """Train on ``cuda:{train_gpu[0]}``, or with several devices (or
+    nodes) and ``multiprocessing_distributed`` one DDP rank per
+    ``train_gpu`` entry (:func:`spawn`). Without a CUDA device it raises;
     ``run(cfg, device="cpu")`` trains on the CPU explicitly."""
+    from semseg_torch.parallel.dist import world_size
+
     if not torch.cuda.is_available():
         raise RuntimeError(
             "semseg_torch.train needs a CUDA device and torch.cuda.is_available() "
             "is false; call run(cfg, device='cpu') to train on the CPU")
     cfg = parse_args(argv)
+    if world_size(cfg) > 1:
+        if not _get(cfg, "multiprocessing_distributed", False):
+            raise ValueError(f"train_gpu {cfg.train_gpu} over {_get(cfg, 'world_size', 1)} "
+                             "node(s) with multiprocessing_distributed False: the port trains "
+                             "on several devices as one process each")
+        spawn(cfg, "cuda")
+        return
     gpus = _get(cfg, "train_gpu", None) or [0]
     run(cfg, device=f"cuda:{gpus[0]}")
 

@@ -838,3 +838,50 @@ def test_async_save_holds_the_snapshotted_step(cuda, tmp_path):
         assert torch.equal(got["state_dict"][k], v), k
         moved += not torch.equal(tr.model.state_dict()[k].cpu(), v)
     assert moved > 0
+
+
+@pytest.mark.parametrize("dtype,per_step", [
+    ("float32", {"psa_softmax_bmm_tf32x3": 2, "psa_softmax_bmm_bwd_da_tf32x3": 2,
+                 "psa_softmax_bmm_bwd_dx_tf32x3": 2}),
+    ("bfloat16", {"psa_softmax_bmm_wgmma": 2, "psa_softmax_bmm_bwd_da_wgmma": 2,
+                  "psa_softmax_bmm_bwd_dx_wgmma": 2})])
+def test_ddp_step_on_the_card_matches_one_process(cuda, dtype, per_step):
+    """One PSANet50 train step at 97x97 crops, global batch 4, as 2 DDP
+    ranks sharing the card over gloo against the one-process
+    ``Trainer(num_replicas=2)`` (``semseg_torch.parallel.parity``): the
+    reduced losses equal on both ranks and within 1e-5 (f32) or 1e-2
+    (bf16) relative of one process; each rank launches the tensor-core
+    forward, da and dx of the dtype twice and nothing else; the state
+    after the step within 3 times (max and median over the entries) the
+    distance of two one-process runs whose images differ by one ulp of
+    the model's dtype (float32: ``np.nextafter``; bfloat16: a factor 1 +
+    2^-7, which its cast keeps)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from semseg_torch.ops import launch_counters
+    from semseg_torch.parallel import parity
+
+    cfg = SimpleNamespace(arch="psa", layers=50, classes=19, zoom_factor=8, train_h=97,
+                          train_w=97, psa_type=2, compact=0, shrink_factor=2,
+                          normalization_factor=1.0, psa_softmax=1)
+    rs = np.random.RandomState(3)
+    images = rs.randn(4, 97, 97, 3).astype(np.float32)
+    labels = rs.randint(0, 19, (4, 97, 97))
+    spec = parity.StepSpec(cfg=cfg, batches=[(images, labels)], dtype=dtype, base_lr=0.01,
+                           device="cuda")
+    ref = parity.one_process_steps(spec, 2)
+    ranks = parity.ddp_steps(spec, 2, timeout_s=300)
+    want = {k: per_step.get(k, 0) for k in launch_counters() if k.endswith(("_wgmma", "_tf32x3"))}
+    for r in ranks:
+        assert {k: r["launches"][0][k] for k in want} == want
+        assert r["losses"] == ranks[0]["losses"]
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(ranks[0]["losses"][0], ref["losses"][0], rtol=rtol)
+    moved = (np.nextafter(images, np.float32(np.inf)) if dtype == "float32"
+             else images * np.float32(1 + 2 ** -7))
+    floor = parity.one_process_steps(dataclasses.replace(spec, batches=[(moved, labels)]), 2)
+    d_ddp = parity.relative_distances(ranks[0]["state"], ref["state"], ref["init"])
+    d_floor = parity.relative_distances(floor["state"], ref["state"], ref["init"])
+    assert max(d_ddp.values()) <= 3 * max(d_floor.values())
+    assert np.median(list(d_ddp.values())) <= 3 * np.median(list(d_floor.values()))

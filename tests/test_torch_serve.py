@@ -181,9 +181,9 @@ def test_entry_point_runs_on_cpu_when_asked(monkeypatch, entry):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and serving one image pulls in no jax/flax, and
-    no cv2, yaml or PIL (those load only inside the functions that use
-    them)."""
+    """Importing the port (its data-parallel modules too) and serving one
+    image pulls in no jax/flax, and no cv2, yaml or PIL (those load only
+    inside the functions that use them)."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -191,6 +191,8 @@ def test_port_imports_no_jax():
         import semseg_torch
         import semseg_torch.serve
         import semseg_torch.engine.evaluator
+        import semseg_torch.parallel.dist
+        import semseg_torch.parallel.parity
         from types import SimpleNamespace
         from semseg_torch.utils.misc import get_logger
         cfg = SimpleNamespace(arch="psp", layers=50, classes=3, zoom_factor=8,
