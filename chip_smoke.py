@@ -9,8 +9,9 @@ training (``config/cityscapes/cityscapes_psanet50.yaml``,
 bf16, batch 16, 705x705 crops) through ``semseg_torch.train.run`` on a
 seeded synthetic list-file dataset written under ``build/``; and the
 user's workflow through the drivers: train with validation, a preemption
-snapshot, resume, the test driver and the demo (phase 20); and two DDP
-ranks sharing the card (phase 21). The CUDA
+snapshot, resume, the test driver and the demo (phase 20); two DDP ranks
+sharing the card (phase 21); and the serving export of both models (phase
+22). The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
 each (12 runs after 4):
 
@@ -124,7 +125,19 @@ each (12 runs after 4):
    driver through ``semseg_torch.train.spawn`` (``train_gpu [0, 0]``,
    global batch 16, 3 steps): each rank's launches exact, one checkpoint
    written and logged by rank 0 alone, peak memory a rank, images/s
-   beside phase 14's (not a scaling number).
+   beside phase 14's (not a scaling number);
+22. serving export (``semseg_torch/engine/export.py``), float32 as the
+   export driver builds: the CUDA-targeted PSANet50 crop artifact (705),
+   traced (after one eager call, its only launches), saved and reloaded in
+   a fresh process (TF32 on
+   there until the artifact's contract turns it off): within 1e-6 of the
+   in-framework module at batch 1 and 3, exactly 2 3xTF32 forwards a call
+   through the operator ``semseg::psa_softmax_bmm``, ms a call; the
+   CUDA-targeted PSANet50 and the portable PSPNet50 full-scope artifacts
+   at 1024x2048 (single scale, flip, ``window_batch`` 8): byte for byte
+   ``predict`` on 2 images, exactly 4 3xTF32 forwards an image (PSANet50)
+   and no kernel (PSPNet50), images/s beside ``predict``'s; trace, save
+   and load seconds and artifact sizes.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -1714,6 +1727,207 @@ def phase_ddp(dev, root, smi, one_rank_images_per_s):
     return by_path
 
 
+# Phase 22: a fresh process loads the CUDA-targeted crop artifact, with TF32
+# on (cuDNN's default) until the artifact's contract turns it off, runs each
+# batch once (the launches) and then times it (CUDA events, median of 5).
+_EXPORT_LOADER = """
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+t0 = time.perf_counter()
+from semseg_torch.engine.export import load_serving
+serve = load_serving(sys.argv[1])
+load_s = time.perf_counter() - t0
+from semseg_torch.ops import launch_counters
+counters = launch_counters()
+per_call, ms, out = [], {}, {}
+with torch.no_grad():
+    for key, x in np.load(sys.argv[2]).items():
+        x = torch.from_numpy(x).cuda()
+        before = {k: fn.launches for k, fn in counters.items()}
+        out[key] = serve(x).cpu().numpy()
+        per_call.append({k: fn.launches - before[k] for k, fn in counters.items()})
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            start.record()
+            serve(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms[key] = float(np.median(times))
+np.savez(sys.argv[3], **out)
+print("EXPORT_LOADER " + json.dumps({
+    "load_s": load_s, "per_call": per_call, "ms": ms,
+    "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]}))
+"""
+
+
+def export_program(label, export, path, eager, load=True):
+    """Export with ``export()``, whose kernels are those of its one eager
+    call, ``eager`` (the trace launches none), save to ``path`` and, with
+    ``load``, load it back in this process (else the traced program
+    itself); returns ``(program, {"trace_s", "save_s", "mb", "load_s",
+    "ops"})``; ``trace_s`` includes the eager call."""
+    from semseg_torch.engine.export import load_serving, save_serving, semseg_ops
+
+    reset_counts()
+    t0 = time.perf_counter()
+    exported = export()
+    trace_s = time.perf_counter() - t0
+    check_counts(f"{label} export", read_counts(), eager)
+    t0 = time.perf_counter()
+    save_serving(str(path), exported)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = load_serving(str(path)) if load else exported.module()
+    load_s = time.perf_counter() - t0 if load else None
+    return program, {"trace_s": trace_s, "save_s": save_s, "load_s": load_s,
+                     "mb": path.stat().st_size / 1e6, "ops": semseg_ops(exported)}
+
+
+def images_per_s(fn, images):
+    """Host-clock rate of ``fn`` over ``images`` after one warm-up call,
+    synchronised; returns ``(rate, outputs)``."""
+    fn(images[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(img) for img in images]
+    torch.cuda.synchronize()
+    return len(images) / (time.perf_counter() - t0), outs
+
+
+def phase_export(dev, images, smi):
+    """Serving export (phase 22), float32 as ``semseg_torch.export`` builds:
+    the CUDA-targeted PSANet50 crop artifact (705) reloaded in a fresh
+    process, within 1e-6 of the in-framework module at batch 1 and 3,
+    exactly 2 3xTF32 forwards a call through ``semseg::psa_softmax_bmm``,
+    TF32 off there; the CUDA-targeted PSANet50 and the portable PSPNet50
+    full-scope artifacts at 1024x2048 (single scale, flip, ``window_batch``
+    8), byte for byte ``predict``, exactly 4 3xTF32 forwards an image
+    (PSANet50) and none (PSPNet50), images/s beside ``predict``'s. Trace,
+    save and load seconds and artifact sizes. Returns the launch counts by
+    path."""
+    import os
+
+    from semseg_torch.engine.evaluator import SlidingWindowEvaluator
+    from semseg_torch.engine.export import export_serving, export_sliding_window, make_serving_fn
+    from semseg_torch.models.build import build_model
+    from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
+
+    phase_t0 = time.perf_counter()
+    out = OUT_DIR / "export"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    norm = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD)
+    op = ["semseg::psa_softmax_bmm"]
+    by_path = {}
+
+    # PSANet50 crop artifact, CUDA-targeted
+    model = build_model(psanet_cfg(), dtype=torch.float32, device=dev, seed=0)
+    traced, crop = export_program("PSANet50 crop", lambda: export_serving(
+        model, crop_h=705, crop_w=705, platforms=["cuda"], **norm), out / "psanet_crop.pt2",
+        launches(psa_softmax_bmm_tf32x3=2), load=False)
+    if crop["ops"] != op:
+        raise AssertionError(f"the CUDA-targeted PSANet50 export holds {crop['ops']}, not {op}")
+    wins = np.stack([img[:705, s:s + 705] for img, s in zip(images, (0, 600, 1300))])
+    inputs = {"b1": wins[:1].astype(np.float32), "b3": wins.astype(np.float32)}
+    np.savez(out / "in.npz", **inputs)
+    direct = make_serving_fn(model, **norm)
+    want, direct_ms, traced_ms, host_ms = {}, {}, {}, {}
+    with torch.no_grad():
+        for key, x in inputs.items():
+            x = torch.from_numpy(x).to(dev)
+            reset_counts()
+            want[key] = direct(x).cpu().numpy()
+            check_counts(f"in-framework crop {key}", read_counts(),
+                         launches(psa_softmax_bmm_tf32x3=2))
+            direct_ms[key] = cuda_ms(lambda: direct(x), reps=5, warmup=1)
+            # the traced program in this process, and each one's host time
+            # to enqueue a call (device kept busy by a 30 ms spin)
+            traced_ms[key] = cuda_ms(lambda: traced(x), reps=5, warmup=1)
+            for name, fn in (("in-framework", direct), ("traced", traced)):
+                torch.cuda._sleep(60_000_000)
+                t0 = time.perf_counter()
+                fn(x)
+                host_ms[(key, name)] = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXPORT_LOADER, str(out / "psanet_crop.pt2"),
+         str(out / "in.npz"), str(out / "got.npz")], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=str(Path.cwd())))
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh process failed to serve the crop artifact:\n"
+                             f"{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.split("EXPORT_LOADER ", 1)[1].splitlines()[0])
+    names = list(kernels())
+    for call in res["per_call"]:
+        check_counts("crop artifact call", {k: call[k] for k in names},
+                     launches(psa_softmax_bmm_tf32x3=2))
+    if res["tf32"] != [False, False]:
+        raise AssertionError(f"TF32 flags {res['tf32']} after loading a float32 artifact")
+    got = np.load(out / "got.npz")
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in inputs}
+    if not max(errs.values()) <= 1e-6:
+        raise AssertionError(f"crop artifact vs in-framework: max abs {errs}")
+    by_path["export_psanet_crop"] = {k: sum(c[k] for c in res["per_call"]) for k in names}
+    log(f"[22 export] PSANet50 crop 705x705 f32 CUDA-targeted ({crop['ops']}): trace "
+        f"{crop['trace_s']:.2f} s, save {crop['save_s']:.2f} s, {crop['mb']:.1f} MB; fresh "
+        f"process {fresh_s:.2f} s, load {res['load_s']:.2f} s, TF32 {res['tf32']}; per call "
+        f"{[c['psa_softmax_bmm_tf32x3'] for c in res['per_call']]} 3xTF32 forwards; max abs vs "
+        f"in-framework {errs}; ms per call (median of 5) artifact {res['ms']}, in-framework "
+        f"{direct_ms}, the traced program in this process {traced_ms}; host ms to enqueue a "
+        f"call { {f'{k} {n}': round(v, 2) for (k, n), v in host_ms.items()} }; on {smi}")
+    del direct, traced
+    torch.cuda.empty_cache()
+
+    # full-scope artifacts, 1024x2048, single scale, flip, window_batch 8
+    full_images = images[:2]
+    for tag, cfg, platforms, per_image in (
+            ("PSANet50", psanet_cfg(), ["cuda"], launches(psa_softmax_bmm_tf32x3=4)),
+            ("PSPNet50", pspnet_cfg(), ["cpu", "cuda"], launches())):
+        if tag == "PSPNet50":
+            model = build_model(cfg, dtype=torch.float32, device=dev, seed=0)
+        ev = SlidingWindowEvaluator(model, classes=cfg.classes, crop_h=cfg.test_h,
+                                    crop_w=cfg.test_w, base_size=cfg.base_size,
+                                    scales=cfg.scales, window_batch=8, device=dev, **norm)
+        program, full = export_program(f"{tag} full", lambda: export_sliding_window(
+            ev, 1024, 2048, platforms=platforms), out / f"{tag.lower()}_full.pt2", per_image)
+        if full["ops"] != (op if tag == "PSANet50" else []):
+            raise AssertionError(f"{tag} full-scope export holds {full['ops']}")
+        predict_rate, preds = images_per_s(ev.predict, full_images)
+
+        def serve(img, program=program):
+            with torch.no_grad():
+                return program(torch.from_numpy(img).to(dev)).cpu().numpy()
+
+        reset_counts()
+        serve(full_images[0])
+        torch.cuda.synchronize()
+        check_counts(f"{tag} full artifact", read_counts(), per_image)
+        by_path[f"export_{tag.lower()}_full"] = read_counts()
+        rate, maps = images_per_s(serve, full_images)
+        for pred, got_map in zip(preds, maps):
+            if got_map.dtype != np.uint8 or not np.array_equal(got_map, pred):
+                raise AssertionError(f"{tag} full artifact differs from predict on "
+                                     f"{int((got_map != pred).sum())} pixels")
+        log(f"[22 export] {tag} full scope 1024x2048 f32, platforms {platforms} "
+            f"({full['ops'] or 'no operator'}): trace {full['trace_s']:.2f} s, save "
+            f"{full['save_s']:.2f} s, {full['mb']:.1f} MB, load {full['load_s']:.2f} s; "
+            f"byte for byte predict on {len(full_images)} images; launches an image "
+            f"{ {k: v for k, v in by_path[f'export_{tag.lower()}_full'].items() if v} }; "
+            f"artifact {rate:.4f} images/s, predict {predict_rate:.4f} images/s; on {smi}")
+        del ev, program
+        torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"[22 export] phase {time.perf_counter() - phase_t0:.1f} s")
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1756,6 +1970,7 @@ def main():
     ms_rates, ms_counts = phase_multiscale(dev, images, smi)
     train_paths, test_paths = phase_drivers(dev, Path("build") / "chip_smoke_data", smi)
     ddp_paths = phase_ddp(dev, Path("build") / "chip_smoke_data", smi, timing["images_per_s"])
+    export_paths = phase_export(dev, images, smi)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -1774,7 +1989,7 @@ def main():
                "psanet_shrink1_train_step": shrink1_train_counts,
                "pspnet_multiscale": ms_counts["PSPNet50"],
                "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths,
-               **ddp_paths}
+               **ddp_paths, **export_paths}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]

@@ -23,6 +23,9 @@ The counterpart of ``semseg_tpu/engine/checkpoint.py`` without orbax:
   reference ``.pth``, a DDP ``module.`` ``.pth`` or a port checkpoint gives a
   state_dict. The port never reads orbax: a JAX checkpoint directory raises
   and names the JAX package's ``.pth`` exporter.
+- ``export_pth``: any of those as the reference's ``{"epoch",
+  "state_dict"}`` with DDP ``module.`` keys (``python -m
+  semseg_torch.export ... export_format pth``).
 
 A training state is the dict of ``Trainer.state_dict()``: ``{"step",
 "state_dict", "optimizer"}``, whose state_dict is the model's own (never
@@ -193,3 +196,16 @@ def load_state_dict_any(path: str) -> dict:
             "files only. Export it with the JAX package: python tool/export.py --config "
             f"<config> model_path {path} export_path <out>.pth export_format pth")
     return load_pth(path)
+
+
+def export_pth(path: str, out_path: str) -> str:
+    """Write the weights of ``path`` (a port checkpoint, a reference or a
+    DDP ``.pth``) as the reference's own ``{"epoch", "state_dict"}`` with
+    DDP ``module.`` keys (JAX ``export_pth``, ``semseg_tpu/models/
+    convert.py:283-294``), keeping the file's epoch (0 if it has none)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    epoch = 0
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        epoch, ckpt = int(ckpt.get("epoch", 0)), ckpt["state_dict"]
+    state = {f"module.{k.removeprefix('module.')}": v for k, v in ckpt.items()}
+    return _write({"epoch": epoch, "state_dict": state}, os.path.abspath(out_path))

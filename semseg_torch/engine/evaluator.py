@@ -13,7 +13,9 @@ per-scale maps are bf16; a bf16 running sum would round again at every
 scale), and reduced to a uint8 class map; ``predict_probs`` returns the
 sum over the number of scales. The image is uploaded once per request,
 and everything after the uint8 upload runs on the evaluator's device; the
-pipeline is channels-first throughout.
+pipeline is channels-first throughout. :meth:`predict_tensor` is that
+whole program on a device tensor, from the uint8 image to the uint8 map;
+``engine/export.py`` exports it as one ``torch.export`` program.
 
 With a bf16 model on CUDA, each chunk's zoom upsample, softmax and flip
 average run as one fused kernel (``ops/stitch.py``) on logits taken at
@@ -34,7 +36,7 @@ import torch
 
 from semseg_torch.ops.resize import resize_bilinear_half_pixel_cf
 from semseg_torch.ops.stitch import supported, upsample_softmax_flip
-from semseg_torch.utils.misc import resolve_device
+from semseg_torch.utils.misc import resolve_device, tensor_cache
 
 
 def _grid_coords(new_h, new_w, crop_h, crop_w, stride_rate):
@@ -52,6 +54,21 @@ def _grid_coords(new_h, new_w, crop_h, crop_w, stride_rate):
     return coords
 
 
+@tensor_cache
+def _coverage(canvas_h, canvas_w, crop_h, crop_w, stride_rate, device):
+    """float32 ``[canvas_h, canvas_w]`` count of the windows covering each
+    pixel. Coverage is separable (the grid is a product of row and column
+    origins): count = rows (x) cols."""
+    coords = _grid_coords(canvas_h, canvas_w, crop_h, crop_w, stride_rate)
+    rows = np.zeros(canvas_h, np.float32)
+    cols = np.zeros(canvas_w, np.float32)
+    for s_h in sorted({c[0] for c in coords}):
+        rows[s_h:s_h + crop_h] += 1.0
+    for s_w in sorted({c[1] for c in coords}):
+        cols[s_w:s_w + crop_w] += 1.0
+    return torch.from_numpy(np.outer(rows, cols)).to(device)
+
+
 def _scaled_size(h, w, scale, base_size):
     long_size = round(scale * base_size)
     new_h = new_w = long_size
@@ -64,7 +81,8 @@ def _scaled_size(h, w, scale, base_size):
 
 @dataclasses.dataclass
 class _Geometry:
-    """Everything about one image shape that does not depend on pixels."""
+    """Everything about one image shape that does not depend on pixels
+    (host values only; the coverage count is :func:`_coverage`)."""
 
     new_h: int
     new_w: int
@@ -74,7 +92,6 @@ class _Geometry:
     canvas_w: int
     chunks: List[List[Tuple[int, int]]]  # window origins, padded to wb each
     n_real: List[int]  # real (non-padding) windows per chunk
-    count: torch.Tensor  # [canvas_h, canvas_w] float32 window coverage
 
 
 class SlidingWindowEvaluator:
@@ -179,15 +196,6 @@ class SlidingWindowEvaluator:
         pad_w = max(crop_w - new_w, 0)
         canvas_h, canvas_w = new_h + pad_h, new_w + pad_w
         coords = _grid_coords(canvas_h, canvas_w, crop_h, crop_w, self.stride_rate)
-        # Coverage is separable (the grid is a product of row and column
-        # origins): count = rows (x) cols.
-        rows = np.zeros(canvas_h, np.float32)
-        cols = np.zeros(canvas_w, np.float32)
-        for s_h in sorted({c[0] for c in coords}):
-            rows[s_h:s_h + crop_h] += 1.0
-        for s_w in sorted({c[1] for c in coords}):
-            cols[s_w:s_w + crop_w] += 1.0
-        count = torch.from_numpy(np.outer(rows, cols)).to(self.device)
         # Fixed chunk size (window_batch, halved under flip); the last
         # chunk is padded with window (0, 0), whose result is dropped.
         wb = min(max(1, self.window_batch // (2 if self.flip else 1)), len(coords))
@@ -197,7 +205,7 @@ class SlidingWindowEvaluator:
             n_real.append(len(chunk))
             chunks.append(chunk + [(0, 0)] * (wb - len(chunk)))
         geom = _Geometry(new_h, new_w, pad_h // 2, pad_w // 2, canvas_h,
-                         canvas_w, chunks, n_real, count)
+                         canvas_w, chunks, n_real)
         self._geometries[key] = geom
         return geom
 
@@ -234,7 +242,8 @@ class SlidingWindowEvaluator:
                     probs = (probs[:wb] + probs[wb:].flip(-1)) / 2
             for i, (y, x) in enumerate(chunk[:n_real]):
                 acc[:, y:y + crop_h, x:x + crop_w] += probs[i]
-        acc /= g.count
+        acc /= _coverage(g.canvas_h, g.canvas_w, crop_h, crop_w, self.stride_rate,
+                         self.device)
         # 4) un-pad, resize back to the original resolution
         acc = acc[:, g.pad_h_half:g.pad_h_half + g.new_h,
                   g.pad_w_half:g.pad_w_half + g.new_w]
@@ -244,14 +253,16 @@ class SlidingWindowEvaluator:
             acc = acc.to(torch.bfloat16)
         return resize_bilinear_half_pixel_cf(acc, (h, w))
 
-    def _probs_sum(self, image: np.ndarray) -> torch.Tensor:
-        """One RGB ``[h, w, 3]`` image (uint8 or float, 0-255) -> the sum
-        over scales of the class probabilities ``[C, h, w]``, in float32 and
-        scale order (one scale: its map as it is, bf16 on a bf16 model).
-        The image is uploaded once; nothing here waits for the device."""
-        # upload as is (uint8 ships a quarter of the float32 bytes)
-        img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
-        img = img.permute(2, 0, 1).float()
+    def _upload(self, image: np.ndarray) -> torch.Tensor:
+        # as is: uint8 ships a quarter of the float32 bytes
+        return torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+
+    def _probs_sum(self, image: torch.Tensor) -> torch.Tensor:
+        """One RGB ``[h, w, 3]`` image on the device (uint8 or float,
+        0-255) -> the sum over scales of the class probabilities ``[C, h,
+        w]``, in float32 and scale order (one scale: its map as it is, bf16
+        on a bf16 model). Nothing here waits for the device."""
+        img = image.permute(2, 0, 1).float()
         total = None
         for scale in self.scales:
             probs = self._scale_probs(img, scale)
@@ -261,12 +272,21 @@ class SlidingWindowEvaluator:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+    def predict_tensor(self, image: torch.Tensor) -> torch.Tensor:
+        """The whole program on the device: one RGB ``[h, w, 3]`` image
+        (uint8 or float, 0-255) on the evaluator's device -> the uint8 class
+        map ``[h, w]``, the argmax of the float32 sum over scales (JAX
+        ``_build_scale_raw(..., emit_argmax=True)`` and
+        ``_build_ms_argmax_raw``). :meth:`predict` runs it under inference
+        mode; ``engine/export.export_sliding_window`` traces it."""
+        return torch.argmax(self._probs_sum(image), dim=0).to(torch.uint8)
+
     @torch.inference_mode()
     def predict_probs(self, image: np.ndarray) -> np.ndarray:
         """Class probabilities ``[h, w, C]`` float32 for one RGB image: the
         mean over scales (bf16 models' bf16 probabilities are widened
         exactly)."""
-        probs = self._probs_sum(image).float() / len(self.scales)
+        probs = self._probs_sum(self._upload(image)).float() / len(self.scales)
         return probs.permute(1, 2, 0).cpu().numpy()
 
     @torch.inference_mode()
@@ -274,7 +294,7 @@ class SlidingWindowEvaluator:
         """The uint8 class map ``[h, w]`` (argmax of the float32 sum over
         scales) as a device tensor; on CUDA the work is queued and the call
         returns before it finishes."""
-        return torch.argmax(self._probs_sum(image), dim=0).to(torch.uint8)
+        return self.predict_tensor(self._upload(image))
 
     def predict(self, image: np.ndarray) -> np.ndarray:
         """argmax class map for one image (uint8)."""

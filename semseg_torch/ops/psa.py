@@ -41,6 +41,14 @@ identity ``sum_i p * dP = sum_c g * out``):
 The dtype rule is a rule, not a fallback: if a kernel does not build or a
 launch fails, the call raises.
 
+The forward without statistics is also the registered operator
+``torch.ops.semseg.psa_softmax_bmm(x, a, norm, flash)``
+(:func:`psa_softmax_bmm_op`): its CUDA implementation is the launch above,
+its CPU implementation the plain version, and a fake implementation gives
+``torch.export`` the output's shape and dtype. The kernels are ``ctypes``
+calls, which a trace cannot follow; the operator is what a traced program
+(``engine/export.py``) records in their place and runs on the card.
+
 :func:`psa_softmax_bmm` and :func:`psa_softmax_bmm_flash` are
 differentiable: while grad is enabled and an input requires it, they run
 through a ``torch.autograd.Function`` whose backward is the matching
@@ -51,7 +59,8 @@ raises. Each kernel's wrapper (the ``_wgmma`` and ``_tf32x3`` functions)
 counts its launches in ``.launches``; the dtype-dispatching entry points
 (:func:`psa_softmax_bmm`, :func:`psa_softmax_bmm_flash`, the two resident
 backward ones and :func:`psa_softmax_bmm_flash_bwd`) count their calls on
-CUDA tensors in theirs.
+CUDA tensors in theirs. The counters move only where the kernels launch,
+never while a program is traced.
 """
 
 from __future__ import annotations
@@ -361,6 +370,30 @@ def _forward_tf32x3(x, a, norm, stats: bool):
     return (out, m, l) if stats else out
 
 
+@torch.library.custom_op("semseg::psa_softmax_bmm", mutates_args=(), device_types="cuda")
+def psa_softmax_bmm_op(x: torch.Tensor, a: torch.Tensor, norm: float,
+                       flash: bool) -> torch.Tensor:
+    """The forward as an operator, ``torch.ops.semseg.psa_softmax_bmm``:
+    float32 ``[N, C, HW]``. On CUDA tensors, one launch of the tensor-core
+    forward of the operands' dtype (bf16 or 3xTF32), counted on its kernel
+    and on :func:`psa_softmax_bmm_flash` (``flash``) or
+    :func:`psa_softmax_bmm`; on CPU tensors the plain version. Forward only:
+    the differentiable path is :class:`_PSA`."""
+    return _forward(x, a, norm, flash=flash, stats=False)
+
+
+@psa_softmax_bmm_op.register_kernel("cpu")
+def _psa_softmax_bmm_op_cpu(x, a, norm, flash):
+    del flash  # one plain version for both entry points
+    return psa_softmax_bmm_reference(x, a, norm)
+
+
+@psa_softmax_bmm_op.register_fake
+def _psa_softmax_bmm_op_fake(x, a, norm, flash):
+    n, c, hw = x.shape
+    return x.new_empty((n, c, hw), dtype=torch.float32)
+
+
 class _PSA(torch.autograd.Function):
     """The fused aggregation with the resident (``flash=False``) or the
     flash kernels, forward and backward. Saves x, a, out, m and l."""
@@ -402,7 +435,9 @@ def psa_softmax_bmm(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
         if return_stats:
             raise ValueError("return_stats is forward-only: call under torch.no_grad()")
         return _PSA.apply(x, a, norm, False)
-    return _forward(x, a, norm, flash=False, stats=return_stats)
+    if return_stats:
+        return _forward(x, a, norm, flash=False, stats=True)
+    return psa_softmax_bmm_op(x, a, norm, False)
 
 
 psa_softmax_bmm.launches = 0
@@ -478,7 +513,9 @@ def psa_softmax_bmm_flash(x: torch.Tensor, a: torch.Tensor, norm: float = 1.0,
         if return_stats:
             raise ValueError("return_stats is forward-only: call under torch.no_grad()")
         return _PSA.apply(x, a, norm, True)
-    return _forward(x, a, norm, flash=True, stats=return_stats)
+    if return_stats:
+        return _forward(x, a, norm, flash=True, stats=True)
+    return psa_softmax_bmm_op(x, a, norm, True)
 
 
 psa_softmax_bmm_flash.launches = 0

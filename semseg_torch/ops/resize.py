@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from semseg_torch.utils.misc import tensor_cache
+
 
 @functools.lru_cache(maxsize=None)
 def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -59,18 +61,16 @@ def _interp_matrix_half_pixel(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def interp_matrix(in_size: int, out_size: int, half_pixel: bool,
                   device: torch.device) -> torch.Tensor:
     """The ``[out, in]`` float32 matrix as a tensor on ``device``, built
-    once per (sizes, grid, device). It is built outside inference mode even
-    when the first call comes from inside it (the evaluator), so that a
-    later training step can save it for backward."""
+    once per (sizes, grid, device) outside inference mode, and anew for
+    each use while a program is traced (``utils.misc.tensor_cache``)."""
     m = (_interp_matrix_half_pixel if half_pixel else _interp_matrix)(
         in_size, out_size
     )
-    with torch.inference_mode(False):
-        return torch.from_numpy(m).to(device)
+    return torch.from_numpy(m).to(device)
 
 
 def _resize_cf(x: torch.Tensor, size, half_pixel: bool) -> torch.Tensor:

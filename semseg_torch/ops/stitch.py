@@ -27,6 +27,7 @@ import functools
 import torch
 
 from semseg_torch.ops.resize import interp_matrix
+from semseg_torch.utils.misc import tensor_cache
 
 
 def supported(dtype) -> bool:
@@ -41,7 +42,7 @@ def _weights(in_size: int, out_size: int, dtype, device) -> torch.Tensor:
     return interp_matrix(in_size, out_size, False, device).to(dtype).float()
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _taps(in_size: int, out_size: int, device: torch.device):
     """The bf16-rounded weight matrix as two taps per output index:
     int32 ``[out, 2]`` source indices and float32 ``[out, 2]`` weights.
@@ -61,7 +62,7 @@ def _taps(in_size: int, out_size: int, device: torch.device):
     return idx.to(device), w.to(device)
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _tap_records(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     """:func:`_taps` as the kernel reads them: int32 ``[out, 4]``, one
     16-byte record ``{lo, hi, bits of w0, bits of w1}`` per output index."""

@@ -53,7 +53,8 @@ port imports nothing of ``semseg_tpu``). Scalars go to
 ``<save_path>/scalars.jsonl`` (the JAX driver's fallback writer; the
 tensorboard writer is not used). ``native_loader: True`` decodes and
 augments in the native pipeline (``data/native.py``), built at first use.
-Not ported: ``profile_dir``, ``model_parallel``.
+Not ported (:func:`check_unported`): ``model_parallel`` above 1 raises;
+``profile_dir`` is logged and ignored.
 """
 
 from __future__ import annotations
@@ -94,6 +95,21 @@ def _finish(cfg, steps):
     if not uint8:
         tail.append(transform.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD))
     return transform.Compose(steps + tail), (Uint8Wire if uint8 else (lambda d: d))
+
+
+def check_unported(cfg, logger) -> None:
+    """The keys whose feature the port lacks. ``model_parallel > 1`` raises:
+    JAX's driver splits the devices into data x model
+    (``tool/train.py:74-85``), so with ``sync_bn: False`` its BatchNorm
+    takes ``devices / model_parallel`` groups (``models/build.py:73``);
+    training on as if it were 1 would compute another step. ``profile_dir``
+    (a device trace of a few steps, ``tool/train.py:426-485``) is logged and
+    ignored."""
+    if int(_get(cfg, "model_parallel", 1)) > 1:
+        raise ValueError(f"model_parallel {cfg.model_parallel}: tensor parallelism is not "
+                         "ported; the port trains data-parallel only (model_parallel 1)")
+    if _get(cfg, "profile_dir"):
+        logger.warning("profile_dir is not ported (no device trace is written): ignored")
 
 
 def per_rank_batch(batch_size: int, world: int, key: str = "batch_size") -> int:
@@ -300,6 +316,7 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
         world = torch.distributed.get_world_size(process_group)
     logger = (logger or get_logger()) if rank == 0 else _quiet_logger()
     validate_arch(cfg)
+    check_unported(cfg, logger)
     seed = _get(cfg, "manual_seed", 0)
     random.seed(seed)
     np.random.seed(seed)
@@ -608,6 +625,7 @@ def spawn(cfg, device="cuda", timeout_s=None, step_hook=None):
     every step. Returns each local rank's summary (:func:`_rank_main`)."""
     from semseg_torch.parallel import dist as pdist
 
+    check_unported(cfg, _quiet_logger())  # raise here; rank 0 logs the warning
     device_type = torch.device(device).type
     backend = pdist.backend_name(cfg, device_type)
     pdist.check_devices(cfg, backend, device_type)

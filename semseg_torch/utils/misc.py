@@ -56,3 +56,44 @@ def resolve_device(device=None):
             "port runs on a CUDA device by default; pass device='cpu' to run "
             "on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def tracing() -> bool:
+    """True while ``torch.export`` or ``torch.compile`` traces the calling
+    code: its tensors are then fake or symbolic and must not outlive the
+    trace."""
+    import torch
+
+    return torch.compiler.is_compiling()
+
+
+def tensor_cache(fn):
+    """``functools.lru_cache`` for functions that build constant tensors
+    (resize matrices, kernel taps, window coverage), keyed by their
+    hashable arguments. A value is built outside inference mode, so that a
+    training step or an export can use it after the evaluator built it
+    under ``torch.inference_mode``. While :func:`tracing`, a cached value
+    (a real tensor, built eagerly) is returned and becomes a constant of
+    the traced program, and a missing one is built for the trace and not
+    stored: a cached fake tensor would be returned to every later eager
+    call. ``cache_clear()`` empties the cache and ``cache`` is the dict
+    itself."""
+    import functools
+
+    import torch
+
+    cache = {}
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        if args in cache:
+            return cache[args]
+        if tracing():
+            return fn(*args)
+        with torch.inference_mode(False):
+            cache[args] = fn(*args)
+        return cache[args]
+
+    wrapper.cache = cache
+    wrapper.cache_clear = cache.clear
+    return wrapper

@@ -885,3 +885,106 @@ def test_ddp_step_on_the_card_matches_one_process(cuda, dtype, per_step):
     d_floor = parity.relative_distances(floor["state"], ref["state"], ref["init"])
     assert max(d_ddp.values()) <= 3 * max(d_floor.values())
     assert np.median(list(d_ddp.values())) <= 3 * np.median(list(d_floor.values()))
+
+
+# Run by test_cuda_export_keeps_the_psa_kernel in a fresh interpreter: TF32
+# on (cuDNN's default) until the artifact's contract turns it off.
+_LOAD_SCRIPT = """
+import sys
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+from semseg_torch.engine.export import load_serving
+path, inputs, outputs = sys.argv[1:4]
+serve = load_serving(path)
+from semseg_torch.ops import psa
+counts, results = [], {}
+for key, x in np.load(inputs).items():
+    before = psa.psa_softmax_bmm_tf32x3.launches
+    with torch.no_grad():
+        results[key] = serve(torch.from_numpy(x).cuda()).cpu().numpy()
+    counts.append(psa.psa_softmax_bmm_tf32x3.launches - before)
+np.savez(outputs, **results)
+print("RESULT", counts, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+"""
+
+
+def test_cuda_export_keeps_the_psa_kernel(cuda, tmp_path):
+    """A CUDA-targeted PSANet50 crop export (33x33, float32) holds the
+    operator ``semseg::psa_softmax_bmm``. A fresh process reloads it: every
+    call launches the 3xTF32 forward exactly twice (two directions), TF32 is
+    off there afterwards, and the probabilities at batch 1 and 3 are within
+    1e-6 of the in-framework module's."""
+    import os
+    import subprocess
+    import sys
+
+    from semseg_torch.engine.export import (
+        export_serving,
+        make_serving_fn,
+        save_serving,
+        semseg_ops,
+    )
+    from semseg_torch.models.layers import set_precision
+    from semseg_torch.models.psanet import PSANet
+    from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
+
+    set_precision(torch.float32)
+    model = PSANet(layers=50, classes=4, zoom_factor=8, mask_h=5, mask_w=5)
+    model.init_weights(torch.Generator().manual_seed(1))
+    model = model.to(cuda).eval()
+    before = psa.psa_softmax_bmm_tf32x3.launches
+    exported = export_serving(model, crop_h=33, crop_w=33, mean=IMAGENET_MEAN,
+                              std=IMAGENET_STD, platforms=["cuda"])
+    # one eager call at batch 1 before the trace; the trace launches nothing
+    assert psa.psa_softmax_bmm_tf32x3.launches == before + 2
+    assert semseg_ops(exported) == ["semseg::psa_softmax_bmm"]
+    path = str(tmp_path / "psa.pt2")
+    save_serving(path, exported)
+    rs = np.random.RandomState(0)
+    inputs = {f"b{b}": (rs.rand(b, 33, 33, 3) * 255).astype(np.float32) for b in (1, 3)}
+    np.savez(tmp_path / "in.npz", **inputs)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _LOAD_SCRIPT, path, str(tmp_path / "in.npz"),
+         str(tmp_path / "out.npz")], capture_output=True, text=True, cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RESULT [2, 2] False False" in proc.stdout
+    direct = make_serving_fn(model, mean=IMAGENET_MEAN, std=IMAGENET_STD)
+    got = np.load(tmp_path / "out.npz")
+    for key, x in inputs.items():
+        with torch.no_grad():
+            want = direct(torch.from_numpy(x).to(cuda)).cpu().numpy()
+        np.testing.assert_allclose(got[key], want, rtol=1e-6, atol=1e-6)
+
+
+def test_portable_export_moves_to_the_card(cuda, tmp_path):
+    """A portable PSPNet50 crop artifact traced on the CPU, loaded onto the
+    card (``move_to_device_pass``), equals the in-framework module on the
+    card within 1e-6 and launches no kernel of the port."""
+    from semseg_torch.engine.export import (
+        export_serving,
+        load_serving,
+        make_serving_fn,
+        save_serving,
+    )
+    from semseg_torch.models.layers import set_precision
+    from semseg_torch.models.pspnet import PSPNet
+    from semseg_torch.ops import launch_counters
+    from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
+
+    set_precision(torch.float32)
+    model = PSPNet(layers=50, classes=4, zoom_factor=8)
+    model.init_weights(torch.Generator().manual_seed(2))
+    path = str(tmp_path / "psp.pt2")
+    save_serving(path, export_serving(model.eval(), crop_h=25, crop_w=25, mean=IMAGENET_MEAN,
+                                      std=IMAGENET_STD, platforms=["cpu", "cuda"]))
+    serve = load_serving(path, device=cuda)
+    x = torch.from_numpy((np.random.RandomState(1).rand(3, 25, 25, 3) * 255).astype(np.float32))
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    got = serve(x.to(cuda))
+    assert {k: fn.launches for k, fn in launch_counters().items()} == counts
+    with torch.no_grad():
+        want = make_serving_fn(model.to(cuda), mean=IMAGENET_MEAN, std=IMAGENET_STD)(x.to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6, atol=1e-6)

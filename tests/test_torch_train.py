@@ -476,3 +476,41 @@ def test_train_run_and_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(_train_args(tmp_path))
+
+
+def test_model_parallel_raises(tmp_path):
+    """``model_parallel > 1`` (tensor parallelism, not ported) raises in
+    ``run`` and in ``spawn`` before any model is built or rank started, as
+    JAX's data x model split would compute another step; 1 trains."""
+    import logging
+
+    from semseg_torch import train
+
+    cfg = train.parse_args(_train_args(tmp_path, "model_parallel", "2"))
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        train.run(cfg, "cpu")
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        train.spawn(cfg, "cpu")
+    train.check_unported(train.parse_args(_train_args(tmp_path, "model_parallel", "1")),
+                         logging.getLogger("test"))
+
+
+def test_profile_dir_is_logged_and_ignored(tmp_path):
+    """``profile_dir`` (a device trace, not ported) logs a warning and
+    writes nothing; the run goes on (here to the batch-size refusal, which
+    comes after the model is built)."""
+    import logging
+
+    from semseg_torch import train
+
+    _write_dataset(tmp_path)
+    records = []
+    logger = logging.getLogger("test_profile_dir")
+    logger.addHandler(type("H", (logging.Handler,), {"emit": lambda self, r: records.append(r)})())
+    prof = tmp_path / "prof"
+    cfg = train.parse_args(_train_args(tmp_path, "profile_dir", str(prof), "batch_size", "8"))
+    with pytest.raises(ValueError, match="exceeds"):
+        train.run(cfg, "cpu", logger=logger)
+    assert any(r.levelno == logging.WARNING and "profile_dir is not ported" in r.getMessage()
+               for r in records)
+    assert not prof.exists()
