@@ -10,8 +10,9 @@ bf16, batch 16, 705x705 crops) through ``semseg_torch.train.run`` on a
 seeded synthetic list-file dataset written under ``build/``; and the
 user's workflow through the drivers: train with validation, a preemption
 snapshot, resume, the test driver and the demo (phase 20); two DDP ranks
-sharing the card (phase 21); and the serving export of both models (phase
-22). The CUDA
+sharing the card (phase 21); the serving export of both models (phase
+22); and the evaluator's window and spatial partitions over two entries of
+the card and its host pipeline (phase 23). The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
 each (12 runs after 4):
 
@@ -103,7 +104,8 @@ each (12 runs after 4):
 20. drivers, the user's workflow on the 1024x2048 street data of phase 13:
    ``semseg_torch.train.run`` of ``cityscapes_psanet50.yaml`` (bf16, batch
    8, 705 crops, 16 training images: 2 steps an epoch, 2 epochs,
-   ``evaluate True`` on 4 images), uninterrupted, then stopped by the
+   ``evaluate True`` on 4 images, ``profile_dir`` set: the first epoch's
+   Chrome trace must name the bf16 PSA kernels), uninterrupted, then stopped by the
    preemption hook after step 3 and resumed with ``resume auto``: the
    snapshot after step 3 and gone after the resumed epoch save, two epoch
    files (keep-2), the resumed state equal to the uninterrupted run's bit
@@ -137,7 +139,27 @@ each (12 runs after 4):
    at 1024x2048 (single scale, flip, ``window_batch`` 8): byte for byte
    ``predict`` on 2 images, exactly 4 3xTF32 forwards an image (PSANet50)
    and no kernel (PSPNet50), images/s beside ``predict``'s; trace, save
-   and load seconds and artifact sizes.
+   and load seconds and artifact sizes;
+23. the evaluator over ``devices=[cuda:0, cuda:0]`` (two entries sharing
+   one replica on the card): ``partition="window"``, bf16, 2 images of
+   each model, the stitch kernel on each entry's pairs (4 an image) and
+   PSANet50's bf16 forward twice an entry a chunk (8 an image); bit for
+   bit (so within 2e-2, agreement >= 0.995) the single-device evaluator
+   that runs each entry's forward batch (``window_batch`` 4), and beside
+   it, not gated, the bf16 forward's own spread against ``window_batch``
+   8. ``"window"`` and ``"spatial"``, f32, 1 image of each model (spatial:
+   rows split over the entries, PSANet50's PSA module whole on the
+   primary, the 3xTF32 forward 4 times; window: 8 times); within 1e-4 of
+   one device, agreement >= 0.999. ``"spatial"``, bf16, 1 image of each
+   model: the stitch once a chunk on the primary on the gathered logits (2
+   an image), PSANet50's bf16 forward twice a chunk (4 an image); its
+   spread from one device within 1.5x that of one device at
+   ``window_batch`` 4 against 8, and its distance to the f32 result within
+   1.25x one device's (``bf16_spatial_gate``). ``mode="host"``, PSPNet50
+   f32, 1 image,
+   against device mode at JAX's bar (atol 2e-2, rtol 1e-2, agreement >
+   0.995). images/s of each path, two entries on one card, not a scaling
+   number.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -1360,6 +1382,8 @@ def phase_multiscale(dev, images, smi):
 # directions); per 1024x2048 image of the f32 test driver, two chunks of
 # 4 windows and their flips through the 3xTF32 forward (two directions).
 DRIVER_VAL_BATCH = dict(psa_softmax_bmm_wgmma=2)
+# The bf16 train step's kernels, by the names the device trace gives them.
+TRACE_KERNELS = ("psa_wgmma_kernel", "psa_da_wgmma_kernel")
 DRIVER_TEST_IMAGE = dict(psa_softmax_bmm_tf32x3=4)
 
 
@@ -1466,10 +1490,18 @@ def phase_drivers(dev, root, smi):
                 by_path["driver_val"][k] += counts[k]
         return res, seconds
 
-    full, full_s = counted_run(driver_cfg(root, out / "full"), True)
+    full, full_s = counted_run(driver_cfg(root, out / "full", profile_dir=str(out / "profile")),
+                               True)
     vals = [v["mIoU"] for v in full["val"]]
     if len(full["val"]) != 2 or not all(np.isfinite(vals)):
         raise AssertionError(f"validation results {full['val']}")
+    traces = sorted((out / "profile").glob("*.json"))
+    text = traces[0].read_text() if len(traces) == 1 else ""
+    named = {k: text.count(k) for k in TRACE_KERNELS}
+    if not (traces == [out / "profile" / "train_epoch_1.pt.trace.json"]
+            and '"traceEvents"' in text and all(named.values())):
+        raise AssertionError(f"profile_dir: traces {traces}, kernel names {named}")
+    trace_mb = traces[0].stat().st_size / 2 ** 20
     state_a = host_state(full["trainer"])
     del full
     pre, pre_s = counted_run(driver_cfg(root, out / "pre", _preempt_after_step=3), False)
@@ -1516,7 +1548,8 @@ def phase_drivers(dev, root, smi):
         f"bit for bit {same_ra}, max relative L2 {dist:.3e}"
         + ("" if same_ra else f" (two uninterrupted runs: {spread:.3e})")
         + "; launches over the first run: train "
-        f"{by_path['driver_train']}, validation {by_path['driver_val']}")
+        f"{by_path['driver_train']}, validation {by_path['driver_val']}; profile_dir: the "
+        f"first epoch's Chrome trace {trace_mb:.1f} MiB, kernel names in it {named}")
     log(f"[20 drivers] checkpoint {size_mb:.1f} MiB: save {save_s:.3f} s, async save returns in "
         f"{async_s:.3f} s (written after {async_total_s:.3f} s), restore {load_s:.3f} s "
         f"on {smi}")
@@ -1928,6 +1961,188 @@ def phase_export(dev, images, smi):
     return by_path
 
 
+# Phase 23: the evaluator's partitions over two entries of the one card.
+# Per 1024x2048 image (8 windows, 2 chunks of 4 pairs at window_batch 8):
+# under ``window`` each entry runs 2 pairs a chunk, so the stitch kernel
+# twice a chunk and, for PSANet50, the bf16 forward twice an entry a chunk
+# (two directions); the f32 PSANet50 the 3xTF32 forward alike (no stitch:
+# f32). Under ``spatial`` the stitch runs once a chunk on the primary, on
+# the gathered logits, and the PSA module whole there: its bf16 (or f32
+# 3xTF32) forward twice a chunk; the f32 PSPNet50 launches no kernel.
+PARTITION_ENTRIES = 2
+WINDOW_IMAGE = {"PSPNet50": dict(upsample_softmax_flip=4),
+                "PSANet50": dict(upsample_softmax_flip=4, psa_softmax_bmm_wgmma=8)}
+SPATIAL_IMAGE = {"PSPNet50": dict(upsample_softmax_flip=2),
+                 "PSANet50": dict(upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4)}
+SPATIAL_F32_IMAGE = {"PSPNet50": {}, "PSANet50": dict(psa_softmax_bmm_tf32x3=4)}
+SPATIAL_TOL = 1e-4  # f32 sums in another order (cuDNN's choice by shape)
+# The bf16 spatial partition against its two witnesses: one device at half
+# the window batch (the same arithmetic on other shapes) and the f32 result.
+# Measured on the H100 (chip_probes/spatial_bf16_probe.py): max abs against
+# one device 0.86-1.20x the witness's, against f32 0.79-0.98x one device's,
+# agreement within 4e-4 of the witness's and never below one device's.
+SPATIAL_BF16_SLACK = dict(vs_witness=1.5, vs_f32=1.25, agreement=0.002)
+
+
+def bf16_spatial_gate(got, single, half, f32):
+    """A bf16 ``spatial`` result ``got`` against the single-device bf16
+    result ``single``, ``single`` at half the window batch ``half`` and the
+    f32 single-device result ``f32`` of one image. A bf16 convolution's
+    rounding depends on the f32 summation order cuDNN picks for the problem
+    shape, and one flip grows through the 50 layers of random weights, so
+    the row slabs move the result as far as any other shape does: the
+    partition is held to (a) its spread from one device within 1.5x the
+    half-batch witness's and (b) its distance to f32 within 1.25x one
+    device's, argmax agreement within 0.002 of each. Returns the readings;
+    raises when a bar is missed."""
+    def spread(a, b):
+        return float(np.abs(a - b).max()), float((a.argmax(-1) == b.argmax(-1)).mean())
+
+    r = dict(vs_single=spread(got, single), witness=spread(half, single),
+             vs_f32=spread(got, f32), single_vs_f32=spread(single, f32))
+    k = SPATIAL_BF16_SLACK
+    ok = (np.isfinite(got).all()
+          and r["vs_single"][0] <= k["vs_witness"] * r["witness"][0]
+          and r["vs_single"][1] >= r["witness"][1] - k["agreement"]
+          and r["vs_f32"][0] <= k["vs_f32"] * r["single_vs_f32"][0]
+          and r["vs_f32"][1] >= r["single_vs_f32"][1] - k["agreement"])
+    if not ok:
+        raise AssertionError(f"bf16 spatial off its witnesses: {r}")
+    return r
+
+
+def counted(fn, images):
+    """``fn`` over ``images`` with the launch counts set to 0 just before:
+    (results, seconds, counts)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = [fn(img) for img in images]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def phase_partitions(dev, images, smi):
+    """The evaluator over ``devices=[cuda:0, cuda:0]`` (phase 23): one card
+    runs the multi-device code (a replica shared by both entries, rows and
+    pairs moved between them as between two cards). f32, 1 image of each
+    model: ``window`` and ``spatial`` within 1e-4 of one device, agreement
+    >= 0.999, the PSA module whole on the primary under ``spatial``.
+    ``window``, bf16, 2 images of each model: exact launches, the fused
+    stitch on each entry's pairs; bit for bit the single-device evaluator
+    that runs the same forward batch (``window_batch`` 4: 2 pairs and
+    their flips, as each entry), so within the stitch license of it (2e-2,
+    argmax agreement >= 0.995); beside it, not gated, the spread against
+    ``window_batch`` 8, which is the bf16 forward's own at batch 4 against
+    8 (cuDNN picks its algorithms by shape). ``spatial``, bf16, 1 image of
+    each: exact launches (the stitch on the primary), held by
+    :func:`bf16_spatial_gate` to the half-batch and f32 witnesses.
+    ``host``, PSPNet50 f32, 1 image: against device mode at JAX's bar
+    (``tests/test_integration.py:322-324``: atol 2e-2, rtol 1e-2,
+    agreement > 0.995). images/s of each: two entries on one card, not a
+    scaling number."""
+    from semseg_torch.serve import build_evaluator
+    from semseg_torch.utils.misc import get_logger
+
+    phase_t0 = time.perf_counter()
+    entries = [dev] * PARTITION_ENTRIES
+    by_path, f32_evals = {}, {}
+    for label, cfg in (("PSPNet50", pspnet_cfg()), ("PSANet50", psanet_cfg())):
+        tag = label.lower()[:6]
+        single = build_evaluator(cfg, get_logger(), dtype=torch.float32, device=dev, seed=0)
+        want = single.predict_probs(images[0])
+        for partition in ("window", "spatial"):
+            ev = single.with_options(devices=entries, partition=partition)
+            ev.predict(images[2])  # warm-up
+            (got,), seconds, counts = counted(ev.predict_probs, images[:1])
+            per_image = SPATIAL_F32_IMAGE[label] if partition == "spatial" else {
+                k: 2 * v for k, v in SPATIAL_F32_IMAGE[label].items()}
+            check_counts(f"{label} {partition} f32", counts, launches(**per_image))
+            err = float(np.abs(got - want).max())
+            agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+            if not (np.isfinite(got).all() and err <= SPATIAL_TOL and agree >= 0.999):
+                raise AssertionError(f"{label} {partition} f32: max abs {err}, "
+                                     f"agreement {agree}")
+            by_path[f"{tag}_{partition}_f32"] = counts
+            log(f"[23 partitions] {label} {partition}, f32, {PARTITION_ENTRIES} entries on one "
+                f"card (not a scaling number): predict_probs of 1 image in {seconds:.3f} s = "
+                f"{1 / seconds:.4f} images/s; vs one device: max abs diff {err:.3e} (bar "
+                f"{SPATIAL_TOL}), agreement {agree:.6f}; launches {counts} on {smi}")
+            del ev
+            torch.cuda.empty_cache()
+        f32_evals[label] = (single, want)
+
+        single = build_evaluator(cfg, get_logger(), dtype=torch.bfloat16, device=dev, seed=0)
+        same_batch = single.with_options(
+            window_batch=single.window_batch // PARTITION_ENTRIES)
+        ev = single.with_options(devices=entries, partition="window")
+        if not ev.fused_stitch or len(ev.models) != PARTITION_ENTRIES:
+            raise AssertionError(f"{label} window: fused {ev.fused_stitch}, "
+                                 f"{len(ev.models)} entries")
+        ev.predict(images[2])  # warm-up
+        preds, seconds, counts = counted(ev.predict, images[:2])
+        check_counts(f"{label} window", counts,
+                     {k: 2 * v for k, v in launches(**WINDOW_IMAGE[label]).items()})
+        spread, witness = (0.0, 1.0), None
+        for img, pred in zip(images[:2], preds):
+            pf, p_same = ev.predict_probs(img), same_batch.predict_probs(img)
+            if (pred != pf.argmax(-1)).any() or not np.array_equal(pf, p_same):
+                raise AssertionError(f"{label} window: predict and predict_probs disagree, or "
+                                     f"not bit for bit window_batch {same_batch.window_batch}")
+            agreement(23, f"{label} window over {PARTITION_ENTRIES} entries vs one device at "
+                      f"the same forward batch", pf, p_same)
+            p8 = single.predict_probs(img)
+            spread = (max(spread[0], float(np.abs(pf - p8).max())),
+                      min(spread[1], float((pf.argmax(-1) == p8.argmax(-1)).mean())))
+            if witness is None:
+                witness = (p8, p_same)  # images[0]: one device at window_batch 8 and 4
+        by_path[f"{tag}_window"] = counts
+        log(f"[23 partitions] {label} window, bf16, {PARTITION_ENTRIES} entries on one card "
+            f"(not a scaling number): 2 images in {seconds:.3f} s = {2 / seconds:.4f} images/s "
+            f"(single-device: phase {5 if label == 'PSPNet50' else 8}); bit for bit one device at "
+            f"window_batch {same_batch.window_batch}; against window_batch "
+            f"{single.window_batch} (the bf16 forward at batch 4 vs 8, not gated): max abs "
+            f"{spread[0]:.3e}, agreement {spread[1]:.6f}; launches {counts} on {smi}")
+        del ev
+        torch.cuda.empty_cache()
+
+        ev = single.with_options(devices=entries, partition="spatial")
+        if not ev.fused_stitch:
+            raise AssertionError(f"{label} spatial: the bf16 evaluator lost the fused stitch")
+        ev.predict(images[2])  # warm-up
+        (got,), seconds, counts = counted(ev.predict_probs, images[:1])
+        check_counts(f"{label} spatial", counts, launches(**SPATIAL_IMAGE[label]))
+        r = bf16_spatial_gate(got, *witness, f32_evals[label][1])
+        by_path[f"{tag}_spatial"] = counts
+        log(f"[23 partitions] {label} spatial, bf16, {PARTITION_ENTRIES} entries on one card "
+            f"(not a scaling number): predict_probs of 1 image in {seconds:.3f} s = "
+            f"{1 / seconds:.4f} images/s; (max abs, agreement) vs one device {r['vs_single']}, "
+            f"witness one device at window_batch {same_batch.window_batch} vs "
+            f"{single.window_batch} {r['witness']}; vs f32 {r['vs_f32']}, one device vs f32 "
+            f"{r['single_vs_f32']}; launches {counts} on {smi}")
+        del single, same_batch, ev
+        torch.cuda.empty_cache()
+
+    single, want = f32_evals["PSPNet50"]
+    host = single.with_options(mode="host")
+    image = images[0].astype(np.float32)
+    (got,), seconds, counts = counted(host.predict_probs, [image])
+    check_counts("PSPNet50 host", counts, launches())
+    err = float(np.abs(got - want).max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    if not (got.dtype == np.float64 and np.allclose(want, got, atol=2e-2, rtol=1e-2)
+            and agree > 0.995):
+        raise AssertionError(f"PSPNet50 host vs device: max abs {err}, agreement {agree}")
+    by_path["pspnet_host"] = counts
+    log(f"[23 partitions] PSPNet50 host (cv2/numpy stitching, float64 canvas, model f32 on the "
+        f"card): 1 image in {seconds:.3f} s = {1 / seconds:.4f} images/s; vs device mode: max "
+        f"abs diff {err:.3e}, agreement {agree:.6f}; launches {counts} on {smi}")
+    del f32_evals, single, host
+    torch.cuda.empty_cache()
+    log(f"[23 partitions] phase {time.perf_counter() - phase_t0:.1f} s")
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1971,6 +2186,7 @@ def main():
     train_paths, test_paths = phase_drivers(dev, Path("build") / "chip_smoke_data", smi)
     ddp_paths = phase_ddp(dev, Path("build") / "chip_smoke_data", smi, timing["images_per_s"])
     export_paths = phase_export(dev, images, smi)
+    partition_paths = phase_partitions(dev, images, smi)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -1989,7 +2205,7 @@ def main():
                "psanet_shrink1_train_step": shrink1_train_counts,
                "pspnet_multiscale": ms_counts["PSPNet50"],
                "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths,
-               **ddp_paths, **export_paths}
+               **ddp_paths, **export_paths, **partition_paths}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]

@@ -10,7 +10,10 @@ config's ``scales`` (averaged over all of them, as ``tool/demo.py:10-13``
 does; the reference demo keeps only the last), with the float32 model of
 the test driver (``semseg_torch/test.py``), writes ``<stem>_gray.png`` and
 ``<stem>_color.png`` next to the image. ``allow_random_weights True`` runs
-seeded random weights when ``model_path`` does not exist.
+seeded random weights when ``model_path`` does not exist. ``eval_devices``
+and ``eval_partition`` split the windows over several devices as in the
+test driver (``eval_partition spatial``: each window's rows, the layout for
+one large image).
 """
 
 from __future__ import annotations
@@ -27,12 +30,15 @@ def run(cfg, device=None, logger=None):
     import cv2
 
     from semseg_torch.models.build import build_model, validate_arch
-    from semseg_torch.test import load_model, make_evaluator
+    from semseg_torch.test import eval_devices, load_model, make_evaluator
     from semseg_torch.utils.misc import colorize, get_logger, resolve_device
 
     logger = logger or get_logger()
     validate_arch(cfg)
     device = resolve_device(device)
+    devices = eval_devices(cfg, device)
+    if devices is not None:
+        device = devices[0]
     if os.path.exists(getattr(cfg, "model_path", None) or ""):
         model = load_model(cfg, device, logger)
     elif getattr(cfg, "allow_random_weights", None):
@@ -40,7 +46,8 @@ def run(cfg, device=None, logger=None):
         model = build_model(cfg, dtype=torch.float32, device=device)
     else:
         raise RuntimeError(f"=> no checkpoint found at '{getattr(cfg, 'model_path', None)}'")
-    evaluator = make_evaluator(cfg, model, device, getattr(cfg, "eval_pipeline", None) or "device")
+    evaluator = make_evaluator(cfg, model, device,
+                               getattr(cfg, "eval_pipeline", None) or "device", devices)
 
     bgr = cv2.imread(cfg.image, cv2.IMREAD_COLOR)
     if bgr is None:

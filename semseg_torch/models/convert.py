@@ -95,6 +95,18 @@ def backbone_state_dict_from_jax(variables):
     return out
 
 
+def classifier_state_dict_from_jax(variables):
+    """JAX ``ResNetClassifier`` variables -> the port ``ResNetClassifier``
+    state_dict: the ``backbone`` subtree, and the Dense ``fc`` kernel
+    ``[in, out]`` transposed to ``fc.weight [out, in]`` with its bias."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out = {}
+    _backbone(out, params["backbone"], stats["backbone"])
+    out["fc.weight"] = _tensor(np.asarray(params["fc"]["kernel"]).T)
+    out["fc.bias"] = _tensor(params["fc"]["bias"])
+    return out
+
+
 def state_dict_from_jax(variables, arch: str = "psp", layers: int = 50):
     """JAX segmentation-model variables -> the port's state_dict, key for
     key the reference naming (``layers`` is implied by the tree and kept

@@ -98,16 +98,20 @@ class PSPNet(ResNet):
         return segment(self, x, zoom, self.ppm if self.use_ppm else None)
 
 
+def seg_out_hw(model: ResNet, h_in: int, w_in: int):
+    """The zoomed logits' ``(h, w)`` for a ``h_in x w_in`` input, which
+    must satisfy ``(H-1) % 8 == 0`` and ``(W-1) % 8 == 0``."""
+    if (h_in - 1) % 8 or (w_in - 1) % 8:
+        raise ValueError(f"(H-1) and (W-1) must be multiples of 8, got {(h_in, w_in)}")
+    return ((h_in - 1) // 8 * model.zoom_factor + 1, (w_in - 1) // 8 * model.zoom_factor + 1)
+
+
 def segment(model: ResNet, x, zoom: bool, context):
     """The forward shared by PSPNet and PSANet: backbone, ``context`` module
     on layer4 (PPM or PSA; ``None`` = identity), ``cls`` head, optional
     zoom upsample, float32 logits; in train mode also the ``aux`` head on
     layer3."""
-    h_in, w_in = x.shape[-2], x.shape[-1]
-    if (h_in - 1) % 8 or (w_in - 1) % 8:
-        raise ValueError(f"(H-1) and (W-1) must be multiples of 8, got {(h_in, w_in)}")
-    out_hw = ((h_in - 1) // 8 * model.zoom_factor + 1,
-              (w_in - 1) // 8 * model.zoom_factor + 1)
+    out_hw = seg_out_hw(model, x.shape[-2], x.shape[-1])
     resize = zoom and model.zoom_factor != 1
 
     _, _, c3, c4 = model.features(x)

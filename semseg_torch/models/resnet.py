@@ -11,7 +11,8 @@ Port of ``semseg_tpu/models/resnet.py``:
 - kaiming fan_out init for convs, BN weight 1 and bias 0.
 
 Submodules carry the reference state_dict names: ``layer0.{0,1,3,4,6,7}``
-for the stem, ``layer{s}.{b}.conv{i}/bn{i}`` and ``downsample.{0,1}``.
+for the stem, ``layer{s}.{b}.conv{i}/bn{i}`` and ``downsample.{0,1}``;
+:class:`ResNetClassifier` adds the ImageNet ``fc``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from semseg_torch.models.layers import (
@@ -26,6 +28,7 @@ from semseg_torch.models.layers import (
     Conv2d,
     ConvBN,
     kaiming_normal_fan_out_,
+    torch_default_conv_init_,
 )
 from semseg_torch.ops.pool import max_pool2d
 
@@ -151,3 +154,26 @@ class ResNet(nn.Module):
     def forward(self, x):
         return self.features(x)
 
+
+class ResNetClassifier(ResNet):
+    """ImageNet-style classifier (JAX ``models/resnet.py:173-196``): the
+    backbone at the classification strides, a float32 mean over H and W of
+    layer4, and ``fc`` in the compute dtype; float32 logits ``[N,
+    num_classes]``."""
+
+    def __init__(self, depth: int = 50, num_classes: int = 1000, deep_base: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(depth=depth, deep_base=deep_base, dtype=dtype)
+        self.fc = nn.Linear(512 * _ARCH[depth][0].expansion, num_classes)
+
+    def init_weights(self, generator: torch.Generator):
+        """The backbone's kaiming fan_out; ``fc`` keeps ``nn.Linear``'s
+        default, U(+-1/sqrt(fan_in)) for weight and bias (the reference's
+        kaiming loop covers only convs and BatchNorm)."""
+        super().init_weights(generator)
+        torch_default_conv_init_(self.fc, generator)
+
+    def forward(self, x):
+        pooled = self.features(x)[3].float().mean(dim=(2, 3)).to(self.dtype)
+        return F.linear(pooled, self.fc.weight.to(self.dtype),
+                        self.fc.bias.to(self.dtype)).float()

@@ -20,9 +20,11 @@ skips straight to the scoring.
 ``eval_pipeline`` unset picks ``device`` for one image shape over up to 16
 probed images and ``device_bucketed`` otherwise (the probe reads PNG and
 JPEG headers, EXIF aware: ``_image_shape``, ``tool/test.py:150-223``);
-both are the same pipeline in the port, and ``host`` raises. Not ported:
-``eval_devices`` / ``eval_partition`` (multi-GPU evaluation, ROADMAP item
-12), which are logged and ignored.
+both are the same pipeline in the port. ``host`` is the cv2/numpy
+reference pipeline, one image at a time. ``eval_devices: N`` (or ``all``)
+evaluates over ``cuda:0 .. cuda:N-1`` with ``eval_partition`` ``window``
+(the default) or ``spatial`` (``engine/evaluator.py``); with ``run(cfg,
+device="cpu")``, over N CPU entries.
 """
 
 from __future__ import annotations
@@ -64,14 +66,34 @@ def load_model(cfg, device, logger):
     return model
 
 
-def make_evaluator(cfg, model, device, mode):
+def eval_devices(cfg, device):
+    """The evaluator's devices for ``eval_devices`` (``tool/test.py:
+    101-130``): None for one device; on CUDA ``cuda:0 .. cuda:N-1``
+    (``all``: every CUDA device), raising when N exceeds the device count;
+    on the CPU, N entries of ``device``."""
+    n = _get(cfg, "eval_devices")
+    if not n:
+        return None
+    device = torch.device(device)
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        n = count if n == "all" else int(n)
+        if n > count:
+            raise RuntimeError(f"eval_devices={n} but only {count} CUDA devices attached")
+        return [torch.device("cuda", i) for i in range(n)] if n > 1 else None
+    if n == "all":
+        raise ValueError("eval_devices 'all' counts CUDA devices; give a number on the CPU")
+    return [device] * int(n) if int(n) > 1 else None
+
+
+def make_evaluator(cfg, model, device, mode, devices=None):
     from semseg_torch.engine.evaluator import SlidingWindowEvaluator
 
     return SlidingWindowEvaluator(
         model, classes=cfg.classes, crop_h=cfg.test_h, crop_w=cfg.test_w,
         mean=IMAGENET_MEAN, std=IMAGENET_STD, base_size=cfg.base_size,
         scales=cfg.scales, window_batch=_get(cfg, "window_batch", 8), mode=mode,
-        device=device)
+        device=device, devices=devices, partition=_get(cfg, "eval_partition", "window"))
 
 
 def run(cfg, device=None, logger=None):
@@ -104,8 +126,11 @@ def run(cfg, device=None, logger=None):
     seconds = 0.0
     if not cfg.has_prediction:
         device = resolve_device(device)
-        if _get(cfg, "eval_devices"):
-            logger.warning("eval_devices is not ported (one device): ignored")
+        devices = eval_devices(cfg, device)
+        if devices is not None:
+            device = devices[0]
+            logger.info("eval devices: %d, partition=%s", len(devices),
+                        _get(cfg, "eval_partition", "window"))
         model = load_model(cfg, device, logger)
         mode = _get(cfg, "eval_pipeline")
         if not mode:
@@ -114,7 +139,7 @@ def run(cfg, device=None, logger=None):
                 {int(i) for i in np.linspace(0, max(n - 1, 0), num=min(16, n))})}
             mode = "device" if len(probe) <= 1 else "device_bucketed"
             logger.info("eval_pipeline auto-selected: %s (%d shapes)", mode, len(probe))
-        evaluator = make_evaluator(cfg, model, device, mode)
+        evaluator = make_evaluator(cfg, model, device, mode, devices)
         seconds = test(logger, test_data, evaluator, gray_folder, color_folder, colors)
     metrics = None
     if cfg.split != "test":
@@ -197,8 +222,9 @@ def _image_shape(path):
 
 def test(logger, test_data, evaluator, gray_folder, color_folder, colors, pipeline_depth=3):
     """Predict every image of ``test_data`` with ``pipeline_depth`` images
-    queued on the device ahead of the read-back, and save the PNGs.
-    Returns the seconds of the loop, every read-back included."""
+    queued on the device ahead of the read-back (the host pipeline: one at
+    a time, on the decoded float image), and save the PNGs. Returns the
+    seconds of the loop, every read-back included."""
     import cv2
 
     from semseg_torch.utils.metrics import AverageMeter
@@ -220,11 +246,14 @@ def test(logger, test_data, evaluator, gray_folder, color_folder, colors, pipeli
     n = len(test_data)
     for i in range(n):
         image, _ = test_data[i]
-        # Decoded pixels are integer-valued 0-255 floats: uint8 ships a
-        # quarter of the bytes, exactly (the evaluator casts back to f32).
-        image = np.ascontiguousarray(image).astype(np.uint8)
+        image = np.ascontiguousarray(image)
         data_time.update(time.time() - end)
-        pending.append((i, evaluator.predict_async(image)))
+        if evaluator.mode == "host":
+            save(i, evaluator.predict(image))
+        else:
+            # Decoded pixels are integer-valued 0-255 floats: uint8 ships a
+            # quarter of the bytes, exactly (the evaluator casts back to f32).
+            pending.append((i, evaluator.predict_async(image.astype(np.uint8))))
         while len(pending) > depth:
             j, lazy = pending.popleft()
             save(j, lazy.cpu().numpy())

@@ -53,8 +53,11 @@ port imports nothing of ``semseg_tpu``). Scalars go to
 ``<save_path>/scalars.jsonl`` (the JAX driver's fallback writer; the
 tensorboard writer is not used). ``native_loader: True`` decodes and
 augments in the native pipeline (``data/native.py``), built at first use.
-Not ported (:func:`check_unported`): ``model_parallel`` above 1 raises;
-``profile_dir`` is logged and ignored.
+``profile_dir``: rank 0 traces the first epoch it trains (its validation
+included) with ``torch.profiler`` (CPU and CUDA activities) and writes a
+Chrome trace, ``<profile_dir>/train_epoch_<N>.pt.trace.json``
+(``tool/train.py:426-485``). Not ported (:func:`check_unported`):
+``model_parallel`` above 1 raises.
 """
 
 from __future__ import annotations
@@ -97,19 +100,55 @@ def _finish(cfg, steps):
     return transform.Compose(steps + tail), (Uint8Wire if uint8 else (lambda d: d))
 
 
-def check_unported(cfg, logger) -> None:
+def check_unported(cfg) -> None:
     """The keys whose feature the port lacks. ``model_parallel > 1`` raises:
     JAX's driver splits the devices into data x model
     (``tool/train.py:74-85``), so with ``sync_bn: False`` its BatchNorm
     takes ``devices / model_parallel`` groups (``models/build.py:73``);
-    training on as if it were 1 would compute another step. ``profile_dir``
-    (a device trace of a few steps, ``tool/train.py:426-485``) is logged and
-    ignored."""
+    training on as if it were 1 would compute another step."""
     if int(_get(cfg, "model_parallel", 1)) > 1:
         raise ValueError(f"model_parallel {cfg.model_parallel}: tensor parallelism is not "
                          "ported; the port trains data-parallel only (model_parallel 1)")
-    if _get(cfg, "profile_dir"):
-        logger.warning("profile_dir is not ported (no device trace is written): ignored")
+
+
+class _EpochTrace:
+    """``profile_dir``'s trace: a ``torch.profiler`` window (CPU activity,
+    and CUDA on a CUDA device) from :meth:`start` to :meth:`write`, which
+    exports it as a Chrome trace. Inactive without a directory."""
+
+    def __init__(self, profile_dir, device, logger):
+        self.dir, self.logger, self.prof = profile_dir, logger, None
+        self.device = torch.device(device)
+
+    def start(self):
+        if not self.dir:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.start()
+
+    def write(self, epoch):
+        """Stop and write ``train_epoch_<epoch>.pt.trace.json``; only once."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"train_epoch_{epoch}.pt.trace.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        self.logger.info("Profiler trace written to: %s", path)
+
+    def close(self):
+        """Stop an unfinished window without writing it (a run that raised)."""
+        if self.prof is not None:
+            self.prof.stop()
+            self.prof = None
 
 
 def per_rank_batch(batch_size: int, world: int, key: str = "batch_size") -> int:
@@ -316,7 +355,7 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
         world = torch.distributed.get_world_size(process_group)
     logger = (logger or get_logger()) if rank == 0 else _quiet_logger()
     validate_arch(cfg)
-    check_unported(cfg, logger)
+    check_unported(cfg)
     seed = _get(cfg, "manual_seed", 0)
     random.seed(seed)
     np.random.seed(seed)
@@ -380,6 +419,7 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
             pass
 
     result = {"trainer": trainer, "epochs": [], "val": [], "checkpoints": [], "preempt": None}
+    trace = _EpochTrace(_get(cfg, "profile_dir") if rank == 0 else None, device, logger)
 
     def landed():
         """Every save on disk; over several ranks, rank 0's seen by all."""
@@ -388,6 +428,7 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
             torch.distributed.barrier(group=control)
 
     try:
+        trace.start()
         for epoch in range(start_epoch, cfg.epochs):
             first = start_batch if epoch == start_epoch else 0
             loader.set_epoch(epoch, first)
@@ -395,6 +436,7 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
                                  _to_device(loader, device, wire, labels_u8), epoch,
                                  steps_per_epoch, max_iter, step_hook, first, preempt)
             if stats.pop("preempted"):
+                trace.write(epoch + 1)
                 ckpt.wait_pending()  # a snapshot waits for the save in flight
                 path = ckpt.preempt_checkpoint_path(cfg.save_path)
                 if rank == 0:
@@ -419,9 +461,11 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
                 result["val"].append(val)
                 for key in ("loss", "mIoU", "mAcc", "allAcc"):
                     writer.add_scalar(f"{key}_val", val[key], epoch + 1)
+            trace.write(epoch + 1)
         landed()
         return result
     finally:
+        trace.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
         writer.close()
@@ -625,7 +669,7 @@ def spawn(cfg, device="cuda", timeout_s=None, step_hook=None):
     every step. Returns each local rank's summary (:func:`_rank_main`)."""
     from semseg_torch.parallel import dist as pdist
 
-    check_unported(cfg, _quiet_logger())  # raise here; rank 0 logs the warning
+    check_unported(cfg)  # raise before any rank starts
     device_type = torch.device(device).type
     backend = pdist.backend_name(cfg, device_type)
     pdist.check_devices(cfg, backend, device_type)

@@ -573,6 +573,62 @@ def test_psanet_slice_on_cuda(cuda):
     assert (fused.argmax(-1) == plain.argmax(-1)).mean() >= 0.995
 
 
+def test_partitions_launch_on_every_entry(cuda):
+    """A small PSANet50 over two entries of the card. bf16 ``window``: the
+    stitch kernel and the two-direction PSA forward run on each entry's
+    pairs (two stitch and four PSA launches a chunk of four pairs), bit for
+    bit the single-device evaluator that runs the same forward batch
+    (``window_batch`` 4, two pairs with their flips). bf16 ``spatial``: the
+    stitch once a chunk on the primary on the gathered logits and the PSA
+    module whole there (its bf16 forward twice a chunk), held to the
+    half-batch and f32 witnesses of ``chip_smoke.py::bf16_spatial_gate``
+    (a bf16 convolution rounds by the summation order cuDNN picks for the
+    shape). f32 ``spatial``: the 3xTF32 forward twice a chunk, within 1e-4
+    of one device, argmax agreement >= 0.999. With a second card the bf16
+    window partition runs on ``cuda:0`` and ``cuda:1``."""
+    from types import SimpleNamespace
+
+    from chip_smoke import bf16_spatial_gate
+    from semseg_torch.serve import build_evaluator
+    from semseg_torch.utils.misc import get_logger
+
+    cfg = SimpleNamespace(arch="psa", layers=50, classes=19, zoom_factor=8,
+                          train_h=97, train_w=97, test_h=97, test_w=97,
+                          base_size=256, scales=[1.0], model_path="",
+                          allow_random_weights=True, window_batch=8,
+                          eval_pipeline="device", psa_type=2, compact=0,
+                          shrink_factor=2, normalization_factor=1.0, psa_softmax=1)
+    image = (np.random.RandomState(0).rand(128, 256, 3) * 255).astype(np.uint8)
+    counters = (stitch.upsample_softmax_flip, psa.psa_softmax_bmm_wgmma,
+                psa.psa_softmax_bmm_tf32x3)
+    bf16 = build_evaluator(cfg, get_logger(), dtype=torch.bfloat16, device=cuda)
+    f32 = build_evaluator(cfg, get_logger(), dtype=torch.float32, device=cuda)
+    geometry = bf16._geometry(128, 256, 1.0)
+    assert geometry.n_real == [4, 4]
+    layouts = [(bf16, ["cuda:0", "cuda:0"], "window", (4, 8, 0)),
+               (bf16, ["cuda:0", "cuda:0"], "spatial", (2, 4, 0)),
+               (f32, ["cuda:0", "cuda:0"], "spatial", (0, 0, 4))]
+    if torch.cuda.device_count() > 1:
+        layouts.append((bf16, ["cuda:0", "cuda:1"], "window", (4, 8, 0)))
+    half = bf16.with_options(window_batch=4).predict_probs(image)
+    for single, devices, partition, want_counts in layouts:
+        ev = single.with_options(devices=devices, partition=partition)
+        assert ev.fused_stitch == (single is bf16)
+        before = [f.launches for f in counters]
+        got = ev.predict_probs(image)
+        torch.cuda.synchronize()
+        assert tuple(f.launches - b for f, b in zip(counters, before)) == want_counts, (
+            devices, partition)
+        if partition == "window":
+            np.testing.assert_array_equal(got, half)
+        elif single is bf16:
+            bf16_spatial_gate(got, bf16.predict_probs(image), half, f32.predict_probs(image))
+        else:
+            want = single.predict_probs(image)
+            assert np.abs(got - want).max() <= 1e-4
+            assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.999
+
+
 def _bwd_bars(dtype, dx_plain, da_plain):
     """f32: 1e-4 * max|plain| + 1e-5 (sums over C or hw terms in another
     order). bf16: one bf16 ulp of max|plain| against the plain grads

@@ -182,8 +182,17 @@ def test_construction_rules():
     with pytest.raises(ValueError, match="requires flip"):
         teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", fused_stitch=True,
                                      **dict(kw, flip=False))
-    with pytest.raises(NotImplementedError):
-        teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", mode="host", **kw)
+    # host mode: the cv2/numpy pipeline (float64 probabilities, no fused
+    # stitch); it has no device program to queue
+    host = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", mode="host", **kw)
+    assert not host.fused_stitch
+    probs = host.predict_probs(STUB_IMAGE)
+    assert probs.dtype == np.float64 and probs.shape == STUB_IMAGE.shape[:2] + (3,)
+    np.testing.assert_array_equal(host.predict(STUB_IMAGE), probs.argmax(-1).astype(np.uint8))
+    with pytest.raises(ValueError, match="device mode"):
+        host.predict_async(STUB_IMAGE)
+    with pytest.raises(ValueError, match="partition"):
+        teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", partition="rows", **kw)
     # several scales run: one class map over the image
     ms = teval.SlidingWindowEvaluator(_TorchZoomStub(), device="cpu", **dict(kw, scales=[0.5, 1.0]))
     assert ms.scales == [0.5, 1.0]

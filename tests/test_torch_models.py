@@ -16,11 +16,12 @@ from semseg_tpu.models import layers as jlayers
 from semseg_tpu.models.convert import export_torch_state_dict
 from semseg_tpu.models.pspnet import PSPNet as JPSPNet
 from semseg_tpu.models.resnet import ResNet as JResNet
+from semseg_tpu.models.resnet import ResNetClassifier as JResNetClassifier
 from semseg_tpu.models.resnet import SEG_DILATIONS, SEG_STRIDES
 from semseg_torch.models import build, convert, layers
 from semseg_torch.models.psanet import PSANet
 from semseg_torch.models.pspnet import PSPNet
-from semseg_torch.models.resnet import ResNet
+from semseg_torch.models.resnet import ResNet, ResNetClassifier
 
 
 def _randomize_bn(variables, seed):
@@ -113,6 +114,34 @@ def test_resnet_features_match_jax(depth):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), w,
                                    rtol=1e-4, atol=1e-4)
+
+
+def test_resnet_classifier_matches_jax():
+    """``ResNetClassifier`` depth 18 at 33x33, f32: JAX-initialised weights
+    (seeded BN) through ``classifier_state_dict_from_jax`` (the ``fc``
+    kernel transposed), logits within 1e-4; the port's own init draws
+    ``fc`` as ``nn.Linear`` does, U(+-1/sqrt(512))."""
+    jmodel = JResNetClassifier(depth=18, num_classes=10)
+    x = np.random.RandomState(4).randn(2, 33, 33, 3).astype(np.float32)
+    v = jax.jit(lambda k, x: jmodel.init(k, x, train=False))(
+        jax.random.PRNGKey(18), jnp.asarray(x))
+    v = _randomize_bn(v, seed=18)
+    want = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(v, jnp.asarray(x)))
+
+    model = ResNetClassifier(depth=18, num_classes=10).eval()
+    model.load_state_dict(convert.classifier_state_dict_from_jax(v), strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert got.shape == (2, 10) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(model.fc.weight.detach().numpy(),
+                                  np.asarray(v["params"]["fc"]["kernel"]).T)
+
+    fresh = ResNetClassifier(depth=18, num_classes=10)
+    fresh.init_weights(torch.Generator().manual_seed(0))
+    bound = 1.0 / np.sqrt(512)
+    for t in (fresh.fc.weight, fresh.fc.bias):
+        assert t.abs().max().item() <= bound and t.std().item() > bound / 3
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -388,6 +388,58 @@ def _signal_and_resume(root, save, target):
                            v["momentum_buffer"]), k
 
 
+# One node's launcher of a two-node run: ``spawn`` with the node's rank.
+_NODE_SCRIPT = """
+import json, sys
+from semseg_torch.train import parse_args, spawn
+out = spawn(parse_args(sys.argv[1:]), "cpu", timeout_s=120)
+print("RESULT", json.dumps([[r["rank"], r["steps"]] for r in out]))
+"""
+
+
+def test_two_node_rendezvous_matches_one_node(two_rank_run):
+    """Two launchers, one process each (``world_size 2``, node ``rank`` 0
+    and 1, ``train_gpu [0]``), meet at a localhost ``dist_url`` over gloo
+    (``parallel/dist.py::rendezvous_url`` takes the url only for several
+    nodes): global ranks 0 and 1 take the 4 steps, node 0 alone writes
+    the epoch files, and the final weights, BN statistics and momentum
+    equal the one-node two-rank run's bit for bit."""
+    import json
+
+    root, _ = two_rank_run
+    save = root / "two_nodes"
+    url = f"tcp://127.0.0.1:{pdist.free_port()}"
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NODE_SCRIPT,
+         *_argv(root, "train_gpu", "[0]", "world_size", "2", "rank", str(node), "dist_url", url,
+                "dist_backend", "gloo", "batch_size", "4", "save_path", str(save))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(root), env=env)
+        for node in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=150) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    results = [json.loads([ln for ln in out.splitlines()
+                           if ln.startswith("RESULT")][0][len("RESULT "):]) for out, _ in outs]
+    assert results == [[[0, 4]], [[1, 4]]]
+    assert sorted(os.listdir(save)) == ["scalars.jsonl", "train_epoch_1.pth",
+                                        "train_epoch_2.pth"]
+    got = ckpt.load_checkpoint(str(save / "train_epoch_2.pth"))
+    want = ckpt.load_checkpoint(str(root / "exp" / "train_epoch_2.pth"))
+    assert got["step"] == want["step"] == 4
+    for k, v in want["state_dict"].items():
+        assert torch.equal(got["state_dict"][k], v), k
+    for k, v in want["optimizer"]["state"].items():
+        assert torch.equal(got["optimizer"]["state"][k]["momentum_buffer"],
+                           v["momentum_buffer"]), k
+    shutil.rmtree(save, ignore_errors=True)
+
+
 def test_spawn_refuses_before_starting_ranks(tmp_path):
     """A global batch the ranks do not divide, a device the machine lacks
     and an NCCL run on the CPU raise before any rank starts; a rank's

@@ -128,6 +128,64 @@ def test_demo_matches_the_test_driver(trained):
     assert demo.run(rand, device="cpu").shape == (H, W)
 
 
+@pytest.fixture(scope="module")
+def one_device_gray(trained):
+    """The single-device test driver's gray map of image 0."""
+    from semseg_torch import test as ttest
+
+    root, pth = trained
+    folder = os.path.join(root, "one_device")
+    ttest.run(tconfig.parse_config_args(_argv(root, "model_path", pth, "index_step", "1",
+                                              "save_folder", folder)), device="cpu")
+    return cv2.imread(os.path.join(folder, "gray", "0.png"), cv2.IMREAD_GRAYSCALE)
+
+
+@pytest.mark.parametrize("partition", ["window", "spatial"])
+def test_drivers_eval_devices(trained, one_device_gray, partition):
+    """``eval_devices 2`` with ``eval_partition`` on the CPU: the test
+    driver's and the demo's gray maps of one image equal the single-device
+    driver's (``window`` at every pixel; ``spatial``, whose float32 sums
+    run in another order, at >= 0.999 of them)."""
+    from semseg_torch import demo
+    from semseg_torch import test as ttest
+
+    root, pth = trained
+    folder = os.path.join(root, f"two_{partition}")
+    keys = ("model_path", pth, "eval_devices", "2", "eval_partition", partition)
+    cfg = tconfig.parse_config_args(_argv(root, *keys, "index_step", "1",
+                                          "save_folder", folder))
+    assert ttest.eval_devices(cfg, "cpu") == [torch.device("cpu")] * 2
+    assert ttest.run(cfg, device="cpu")["images"] == 1
+    bar = 1.0 if partition == "window" else 0.999
+    gray = cv2.imread(os.path.join(folder, "gray", "0.png"), cv2.IMREAD_GRAYSCALE)
+    assert (gray == one_device_gray).mean() >= bar
+    image = os.path.join(folder, "0.png")
+    shutil.copy(os.path.join(root, "img", "0.png"), image)
+    gray = demo.run(demo.parse_args(["--config", CONFIG, "image", image,
+                                     *_argv(root, *keys)[2:]]), device="cpu")
+    assert (gray == one_device_gray).mean() >= bar
+
+
+def test_eval_devices_rules(monkeypatch):
+    """``eval_devices``: unset or 1 is one device; on CUDA ``cuda:0 ..
+    N-1``, ``all`` every device, more than the machine shows raises; on
+    the CPU ``all`` raises (it counts CUDA devices)."""
+    from types import SimpleNamespace
+
+    from semseg_torch import test as ttest
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert ttest.eval_devices(SimpleNamespace(), "cpu") is None
+    assert ttest.eval_devices(SimpleNamespace(eval_devices=1), "cuda:0") is None
+    assert ttest.eval_devices(SimpleNamespace(eval_devices="all"), "cuda:0") == [
+        torch.device("cuda", 0), torch.device("cuda", 1)]
+    with pytest.raises(RuntimeError, match="only 2 CUDA devices"):
+        ttest.eval_devices(SimpleNamespace(eval_devices=3), "cuda:0")
+    with pytest.raises(ValueError, match="all"):
+        ttest.eval_devices(SimpleNamespace(eval_devices="all"), "cpu")
+    assert ttest.eval_devices(SimpleNamespace(eval_devices=3), "cpu") == [torch.device("cpu")] * 3
+
+
 # Run by test_test_and_demo_import_no_jax in a fresh interpreter.
 _SCRIPT = """
 import sys

@@ -482,8 +482,6 @@ def test_model_parallel_raises(tmp_path):
     """``model_parallel > 1`` (tensor parallelism, not ported) raises in
     ``run`` and in ``spawn`` before any model is built or rank started, as
     JAX's data x model split would compute another step; 1 trains."""
-    import logging
-
     from semseg_torch import train
 
     cfg = train.parse_args(_train_args(tmp_path, "model_parallel", "2"))
@@ -491,26 +489,30 @@ def test_model_parallel_raises(tmp_path):
         train.run(cfg, "cpu")
     with pytest.raises(ValueError, match="tensor parallelism"):
         train.spawn(cfg, "cpu")
-    train.check_unported(train.parse_args(_train_args(tmp_path, "model_parallel", "1")),
-                         logging.getLogger("test"))
+    train.check_unported(train.parse_args(_train_args(tmp_path, "model_parallel", "1")))
 
 
 def test_profile_dir_is_logged_and_ignored(tmp_path):
-    """``profile_dir`` (a device trace, not ported) logs a warning and
-    writes nothing; the run goes on (here to the batch-size refusal, which
-    comes after the model is built)."""
+    """``profile_dir`` traces the first epoch (``tool/train.py:426-485``):
+    the run trains as without it, logs the trace's path and writes one
+    Chrome trace (``traceEvents``) holding the step's convolutions."""
+    import json
     import logging
 
     from semseg_torch import train
 
-    _write_dataset(tmp_path)
+    _write_dataset(tmp_path, n=2)
     records = []
     logger = logging.getLogger("test_profile_dir")
+    logger.setLevel(logging.INFO)
     logger.addHandler(type("H", (logging.Handler,), {"emit": lambda self, r: records.append(r)})())
     prof = tmp_path / "prof"
-    cfg = train.parse_args(_train_args(tmp_path, "profile_dir", str(prof), "batch_size", "8"))
-    with pytest.raises(ValueError, match="exceeds"):
-        train.run(cfg, "cpu", logger=logger)
-    assert any(r.levelno == logging.WARNING and "profile_dir is not ported" in r.getMessage()
-               for r in records)
-    assert not prof.exists()
+    cfg = train.parse_args(_train_args(tmp_path, "profile_dir", str(prof)))
+    res = train.run(cfg, "cpu", logger=logger)
+    assert res["trainer"].step_count == 1
+    assert os.listdir(prof) == ["train_epoch_1.pt.trace.json"]
+    trace = json.loads((prof / "train_epoch_1.pt.trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any(n.startswith("aten::conv") for n in names), sorted(names)[:20]
+    path = prof / "train_epoch_1.pt.trace.json"
+    assert any(r.getMessage() == f"Profiler trace written to: {path}" for r in records)
