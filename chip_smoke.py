@@ -499,9 +499,9 @@ def phase_stitch_kernel(dev):
     return results
 
 
-def phase_psa_kernels(dev):
+def phase_psa_kernels(dev, extents=PSA_EXTENTS, tag="4 psa kernels"):
     """The PSA forward entry points against the plain version at the recipe
-    extents (phase 4); both run the tensor-core forward of the dtype. f32
+    extents (phase 4; phase 24 at a TP rank's channels); both run the tensor-core forward of the dtype. f32
     operands (3xTF32): within ``PSA_REL`` and element by element within the
     JAX package's f32 bar (rtol = atol = 1e-5) against the product in
     float64 (``elementwise_f64``; against the f32 plain version it is
@@ -513,7 +513,7 @@ def phase_psa_kernels(dev):
     from semseg_torch.ops import psa
 
     results = {}
-    for label, n, c, hw in PSA_EXTENTS:
+    for label, n, c, hw in extents:
         for dt in (torch.bfloat16, torch.float32):
             g = torch.Generator(device=dev).manual_seed(0)
             x = torch.randn(n, c, hw, generator=g, device=dev).to(dt)
@@ -549,7 +549,7 @@ def phase_psa_kernels(dev):
             bound_ms, bound_by = psa_fwd_bound(n, c, hw, dt)
             dname = "bf16" if bf16 else "f32"
             kind = "tensor-core" if bf16 else "3xTF32"
-            log(f"[4 psa kernels] {label} (N,C,hw)=({n},{c},{hw}) {dname}: resident ({kind}) "
+            log(f"[{tag}] {label} (N,C,hw)=({n},{c},{hw}) {dname}: resident ({kind}) "
                 f"err {err_r:.3e} ({ratio:.3f} of its bar, {elem:.3f} of JAX's {lic:g} "
                 f"element-wise" + ("" if bf16 else f" against f64, {elem32:.3f} against the f32 "
                                    "plain") + f") {ms_r:.4f} ms "
@@ -735,9 +735,10 @@ def phase_shrink1(dev, image):
     return counts
 
 
-def phase_psa_backward(dev):
+def phase_psa_backward(dev, extents=PSA_EXTENTS, tag="12 psa backward"):
     """The backward kernels against the plain backward at the recipe
-    extents, from the kernels' own forward statistics (phase 12). The
+    extents, from the kernels' own forward statistics (phase 12; phase 24
+    at a TP rank's channels). The
     flash backward's route (``psa_softmax_bmm_flash_bwd``: the tensor-core
     dx and da of the dtype, from the flash forward's m, l and output) is
     held to the bars of those kernels against the plain backward from the
@@ -761,7 +762,7 @@ def phase_psa_backward(dev):
     from semseg_torch.ops import psa
 
     results = {}
-    for label, n, c, hw in PSA_EXTENTS:
+    for label, n, c, hw in extents:
         for dt in (torch.bfloat16, torch.float32):
             bf16 = dt == torch.bfloat16
             g0 = torch.Generator(device=dev).manual_seed(1)
@@ -841,7 +842,7 @@ def phase_psa_backward(dev):
             kind = "tensor-core" if bf16 else "3xTF32"
             dx_bound, dx_by = psa_dx_bound(n, c, hw, dt)
             da_bound, da_by = psa_da_bound(n, c, hw, dt)
-            log(f"[12 psa backward] {label} (N,C,hw)=({n},{c},{hw}) {dname}: errors "
+            log(f"[{tag}] {label} (N,C,hw)=({n},{c},{hw}) {dname}: errors "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                 + f" (da at {da_ratio:.3f}, dx at {dx_ratio:.3f}, the flash route at "
                 f"{route_ratio:.3f} of their bars"
@@ -1646,77 +1647,86 @@ def ddp_driver_cfg(root, save):
     return cfg
 
 
-def phase_ddp(dev, root, smi, one_rank_images_per_s):
-    """Data-parallel training as two ranks sharing the card (phase 21): one
-    f32 PSANet50 step at 705x705, global batch 4, as 2 DDP ranks against
-    the one-process ``Trainer(num_replicas=2)``, gated on the one-ulp floor
-    measured here, with each rank's launches exact; then the bf16 driver
-    through ``semseg_torch.train.spawn`` (phase 13's config, global batch
-    16, 3 steps): launches per rank, one checkpoint written by rank 0,
-    which alone logs; peak memory per rank and images/s. Returns the
-    launch counts by path and rank."""
-    import os
-
-    from semseg_torch.engine import checkpoint as ckpt
+def parallel_step_check(tag, label, path, world, model_parallel, batch, names):
+    """One f32 PSANet50 step at 705x705 on global ``batch`` street samples
+    as ``world / model_parallel x model_parallel`` ranks sharing the card
+    over gloo (``parity.tp_steps``; DDP at ``model_parallel`` 1) against
+    the one-process ``Trainer(num_replicas=world / model_parallel)``: the
+    (gathered) state within ``DDP_K`` times the one-ulp floor measured here
+    (max and median over the entries), the step-0 loss within 1e-5, the
+    losses bit-identical on every rank; the one process's and each rank's
+    launches exactly the 3xTF32 forward, da and dx twice, a TP rank's on
+    its channel shard (``psa.reduce.0`` holds 512 / ``model_parallel``
+    rows). Returns the launch counts by ``{path}_rank{r}``."""
     from semseg_torch.parallel import parity
     from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
-    from semseg_torch.train import spawn
 
-    log(f"[21 ddp] {DDP_RANKS} ranks share the one card over gloo, named in the config: NCCL "
-        f"needs a device per rank and this machine shows {torch.cuda.device_count()}")
-    pairs = [street_sample(40 + s) for s in range(4)]
+    pairs = [street_sample(40 + s) for s in range(batch)]
     images = ((np.stack([p[0][:705, :705] for p in pairs]).astype(np.float32)
                - np.float32(IMAGENET_MEAN)) / np.float32(IMAGENET_STD)).astype(np.float32)
     labels = np.stack([p[1][:705, :705] for p in pairs])
     spec = parity.StepSpec(cfg=psanet_cfg(), batches=[(images, labels)], base_lr=0.01,
                            device="cuda")
+    data = world // model_parallel
     t0 = time.perf_counter()
-    ref = parity.one_process_steps(spec, DDP_RANKS)
-    moved = dataclasses.replace(spec, batches=[
-        (np.nextafter(images, np.float32(np.inf)), labels)])
-    floor = parity.one_process_steps(moved, DDP_RANKS)
+    ref = parity.one_process_steps(spec, data)
+    floor = parity.one_process_steps(dataclasses.replace(spec, batches=[
+        (np.nextafter(images, np.float32(np.inf)), labels)]), data)
     one_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = parity.ddp_steps(spec, DDP_RANKS, timeout_s=400)
-    ddp_s = time.perf_counter() - t0
-    names = list(kernels())
+    ranks = parity.tp_steps(spec, world, model_parallel, timeout_s=400)
+    ranks_s = time.perf_counter() - t0
+    check_counts(f"{label}: one-process f32 step", {k: ref["launches"][0][k] for k in names},
+                 launches(**F32_TRAIN_STEP))
     by_path = {}
     for r, res in enumerate(ranks):
         counts = {k: res["launches"][0][k] for k in names}
-        check_counts(f"DDP f32 step, rank {r}", counts, launches(**F32_TRAIN_STEP))
-        by_path[f"ddp_f32_step_rank{r}"] = counts
-    check_counts("one-process f32 step", {k: ref["launches"][0][k] for k in names},
-                 launches(**F32_TRAIN_STEP))
+        check_counts(f"{label} f32 step, rank {r}", counts, launches(**F32_TRAIN_STEP))
+        by_path[f"{path}_rank{r}"] = counts
+        rows = res["shard_rows"].get("psa.reduce.0.weight")
+        if model_parallel > 1 and rows != 512 // model_parallel:
+            raise AssertionError(f"{label}, rank {r}: shard rows {res['shard_rows']}")
     d_floor = parity.relative_distances(floor["state"], ref["state"], ref["init"])
-    d_ddp = parity.relative_distances(ranks[0]["state"], ref["state"], ref["init"])
+    d_ranks = parity.relative_distances(ranks[0]["state"], ref["state"], ref["init"])
     stats = {k: (max(d.values()), float(np.median(list(d.values()))))
-             for k, d in (("floor", d_floor), ("ddp", d_ddp))}
-    worst = max(d_ddp, key=d_ddp.get)
+             for k, d in (("floor", d_floor), ("ranks", d_ranks))}
+    worst = max(d_ranks, key=d_ranks.get)
     loss_rel = abs(ranks[0]["losses"][0][0] - ref["losses"][0][0]) / abs(ref["losses"][0][0])
-    ok = (ranks[0]["losses"] == ranks[1]["losses"] and loss_rel <= 1e-5
-          and all(np.isfinite(v) for v in d_ddp.values())
-          and stats["ddp"][0] <= DDP_K * stats["floor"][0]
-          and stats["ddp"][1] <= DDP_K * stats["floor"][1])
-    log(f"[21 ddp] f32 PSANet50 705x705 global batch 4, one step: 2 DDP ranks against the "
-        f"one-process Trainer(num_replicas=2): loss {ranks[0]['losses'][0][0]:.6f} vs "
-        f"{ref['losses'][0][0]:.6f} (rel {loss_rel:.2e}); state distance max "
-        f"{stats['ddp'][0]:.4f} ({worst}) median {stats['ddp'][1]:.4f}, one-ulp floor max "
+    ok = (all(r["losses"] == ranks[0]["losses"] for r in ranks) and loss_rel <= 1e-5
+          and sorted(ranks[0]["state"]) == sorted(ref["state"])
+          and all(np.isfinite(v) for v in d_ranks.values())
+          and stats["ranks"][0] <= DDP_K * stats["floor"][0]
+          and stats["ranks"][1] <= DDP_K * stats["floor"][1])
+    log(f"[{tag}] {label}: f32 PSANet50 705x705 global batch {batch}, one step, {data} x "
+        f"{model_parallel} (data x model) ranks against the one-process Trainer(num_replicas="
+        f"{data}): loss {ranks[0]['losses'][0][0]:.6f} vs {ref['losses'][0][0]:.6f} (rel "
+        f"{loss_rel:.2e}), equal on all {world} ranks; state distance max "
+        f"{stats['ranks'][0]:.4f} ({worst}) median {stats['ranks'][1]:.4f}, one-ulp floor max "
         f"{stats['floor'][0]:.4f} median {stats['floor'][1]:.4f} (bar {DDP_K} x floor) over "
-        f"{len(d_ddp)} entries; per-rank launches {by_path['ddp_f32_step_rank0']}; seconds: "
-        f"two one-process runs {one_s:.2f}, the 2-rank spawn {ddp_s:.2f}, rank steps "
-        f"{[round(r_['seconds'][0], 3) for r_ in ranks]}, peak "
+        f"{len(d_ranks)} entries; per-rank launches {by_path[path + '_rank0']} at C = "
+        f"{512 // model_parallel}; seconds: two one-process runs {one_s:.2f}, the {world}-rank "
+        f"spawn {ranks_s:.2f}, rank steps {[round(r_['seconds'][0], 3) for r_ in ranks]}, peak "
         f"{[round(r_['peak_gib'], 2) for r_ in ranks]} GiB a rank")
     if not ok:
-        raise AssertionError(f"DDP f32 step against one process: losses {ranks[0]['losses']} "
-                             f"/ {ranks[1]['losses']} vs {ref['losses']}, distances {stats}")
+        raise AssertionError(f"{label} f32 step against one process: losses "
+                             f"{[r['losses'] for r in ranks]} vs {ref['losses']}, distances "
+                             f"{stats}")
     del ref, floor, ranks
     torch.cuda.empty_cache()
+    return by_path
 
-    save = OUT_DIR / "ddp"
+
+def spawn_driver(cfg, save):
+    """``semseg_torch.train.spawn(cfg, "cuda")`` into a fresh ``save``
+    directory, the ranks' log lines in ``save/ranks.log``: ``(summaries,
+    log text, seconds, log path)``."""
+    import os
+
+    from semseg_torch.train import spawn
+
     shutil.rmtree(save, ignore_errors=True)
     save.mkdir(parents=True)
-    cfg = ddp_driver_cfg(root, save / "exp")
     log_path = save / "ranks.log"
     sys.stderr.flush()
     saved_fd, fd = os.dup(2), os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
@@ -1730,7 +1740,28 @@ def phase_ddp(dev, root, smi, one_rank_images_per_s):
         os.dup2(saved_fd, 2)
         os.close(fd)
         os.close(saved_fd)
-    text = log_path.read_text()
+    return summaries, log_path.read_text(), spawn_s, log_path
+
+
+def phase_ddp(dev, root, smi, one_rank_images_per_s):
+    """Data-parallel training as two ranks sharing the card (phase 21): one
+    f32 PSANet50 step at 705x705, global batch 4, as 2 DDP ranks against
+    the one-process ``Trainer(num_replicas=2)``, gated on the one-ulp floor
+    measured here, with each rank's launches exact; then the bf16 driver
+    through ``semseg_torch.train.spawn`` (phase 13's config, global batch
+    16, 3 steps): launches per rank, one checkpoint written by rank 0,
+    which alone logs; peak memory per rank and images/s. Returns the
+    launch counts by path and rank."""
+    from semseg_torch.engine import checkpoint as ckpt
+
+    log(f"[21 ddp] {DDP_RANKS} ranks share the one card over gloo, named in the config: NCCL "
+        f"needs a device per rank and this machine shows {torch.cuda.device_count()}")
+    names = list(kernels())
+    by_path = parallel_step_check("21 ddp", "DDP", "ddp_f32_step", DDP_RANKS, 1, 4, names)
+
+    save = OUT_DIR / "ddp"
+    cfg = ddp_driver_cfg(root, save / "exp")
+    summaries, text, spawn_s, log_path = spawn_driver(cfg, save)
     steps = 48 // 16
     for res in summaries:
         counts = {k: res["launches"][k] for k in names}
@@ -2143,6 +2174,91 @@ def phase_partitions(dev, images, smi):
     return by_path
 
 
+# Phase 24: tensor parallelism (``model_parallel``) over ranks sharing the
+# card over gloo, as phase 21. A PSANet50 TP rank runs the PSA kernels on
+# its channel shard: C = 512 / TP_M at the Cityscapes extent.
+TP_M = 2
+TP_EXTENTS = (("cityscapes-705-tp2", 8, 512 // TP_M, 2025),)
+TP_DRIVER_BATCH, TP_DRIVER_STEPS = 8, 3
+
+
+def tp_driver_cfg(root, save):
+    """Phase 13's training config (bf16, 705 crops) at global batch
+    ``TP_DRIVER_BATCH`` over ``train_gpu: [0, 0]`` with ``model_parallel
+    2`` (one data rank: both ranks load every sample), gloo named, one
+    epoch of the first ``TP_DRIVER_BATCH * TP_DRIVER_STEPS`` street images
+    (``train_tp.txt``)."""
+    root = Path(root)
+    n = TP_DRIVER_BATCH * TP_DRIVER_STEPS
+    lines = (root / "train.txt").read_text().splitlines()[:n]
+    (root / "train_tp.txt").write_text("\n".join(lines) + "\n")
+    cfg = train_cfg(root, TP_DRIVER_BATCH)
+    cfg.update(train_gpu=[0] * TP_M, dist_backend="gloo", multiprocessing_distributed=True,
+               model_parallel=TP_M, save_path=str(save), train_list=str(root / "train_tp.txt"))
+    return cfg
+
+
+def phase_tp(dev, root, smi, one_rank_images_per_s):
+    """Tensor-parallel training, ranks sharing the card over gloo (phase
+    24): the PSA kernels at a TP rank's channels (C = 256) against their
+    plain versions with the bars of phases 4 and 12; one f32 PSANet50 step
+    as 1 x 2 (data x model) and as a 2 x 2 grid against one process
+    (``parallel_step_check``); the bf16 driver through ``semseg_torch.train.
+    spawn`` with ``model_parallel 2`` (3 steps): launches per rank, one
+    full checkpoint written by rank 0 that loads strictly into a
+    one-process model, images/s and peak memory a rank. Returns the launch
+    counts by path and rank, and the kernels' C = 256 readings."""
+    from semseg_torch.engine import checkpoint as ckpt
+    from semseg_torch.models.build import build_model
+
+    phase_t0 = time.perf_counter()
+    log(f"[24 tp] model_parallel {TP_M}: ranks share the one card over gloo, named in the "
+        f"config (NCCL needs a device per rank; this machine shows "
+        f"{torch.cuda.device_count()}); not a scaling number")
+    fwd = phase_psa_kernels(dev, TP_EXTENTS, "24 tp kernels")
+    bwd = phase_psa_backward(dev, TP_EXTENTS, "24 tp kernels")
+    names = list(kernels())
+    by_path = parallel_step_check("24 tp", "TP alone", "tp_f32_step", TP_M, TP_M, 2, names)
+    by_path.update(parallel_step_check("24 tp", "the grid", "tp_grid", 2 * TP_M, TP_M, 4,
+                                       names))
+
+    save = OUT_DIR / "tp"
+    cfg = tp_driver_cfg(root, save / "exp")
+    summaries, text, spawn_s, log_path = spawn_driver(cfg, save)
+    steps = TP_DRIVER_STEPS
+    for res in summaries:
+        counts = {k: res["launches"][k] for k in names}
+        check_counts(f"TP bf16 driver, rank {res['rank']}", counts,
+                     {k: steps * v for k, v in launches(**TRAIN_STEP).items()})
+        by_path[f"tp_driver_rank{res['rank']}"] = counts
+    files = sorted(p.name for p in (save / "exp").iterdir())
+    payload = ckpt.load_checkpoint(str(save / "exp" / "train_epoch_1.pth"))
+    one = build_model(cfg, device="cpu", train=True)
+    one.load_state_dict(payload["state_dict"], strict=True)
+    if not ([r["steps"] for r in summaries] == [steps] * TP_M
+            and files == ["scalars.jsonl", "train_epoch_1.pth"]
+            and text.count("Saving checkpoint to") == 1 and text.count("MainLoss") == steps
+            and f"data x model = 1 x {TP_M}" in text and payload["step"] == steps
+            and payload["state_dict"]["psa.attention.3.weight"].shape[0] == 89 * 89):
+        raise AssertionError(f"TP driver: steps {[r['steps'] for r in summaries]}, files "
+                             f"{files}, {text.count('Saving checkpoint to')} saves and "
+                             f"{text.count('MainLoss')} step lines logged (log {log_path})")
+    del one, payload
+    ends = summaries[0]["step_ends"]
+    rate = (steps - 1) * TP_DRIVER_BATCH / (ends[-1] - ends[0])
+    log(f"[24 tp] bf16 driver, train_gpu [0, 0] over gloo, model_parallel {TP_M}, PSANet50 "
+        f"705x705 global batch {TP_DRIVER_BATCH} (every sample on both ranks), {steps} steps "
+        f"through spawn() in {spawn_s:.2f} s (process start, build and loader included): "
+        f"{rate:.3f} images/s over steps 2-{steps} (two ranks sharing one card, not a scaling "
+        f"number; one process, phase 14: {one_rank_images_per_s or 'not measured'} images/s "
+        f"on a device-resident batch); peak {[round(r['peak_gib'], 2) for r in summaries]} GiB "
+        f"a rank; per-rank launches {by_path['tp_driver_rank0']}; one full checkpoint "
+        f"(psa.attention.3 {89 * 89} rows), written and logged by rank 0 alone, loads strictly "
+        f"into a one-process model; files {files}; on {smi}")
+    log(f"[24 tp] phase {time.perf_counter() - phase_t0:.1f} s")
+    return by_path, fwd, bwd
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2187,6 +2303,8 @@ def main():
     ddp_paths = phase_ddp(dev, Path("build") / "chip_smoke_data", smi, timing["images_per_s"])
     export_paths = phase_export(dev, images, smi)
     partition_paths = phase_partitions(dev, images, smi)
+    tp_paths, _, _ = phase_tp(dev, Path("build") / "chip_smoke_data", smi,
+                              timing["images_per_s"])
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -2205,7 +2323,7 @@ def main():
                "psanet_shrink1_train_step": shrink1_train_counts,
                "pspnet_multiscale": ms_counts["PSPNet50"],
                "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths,
-               **ddp_paths, **export_paths, **partition_paths}
+               **ddp_paths, **export_paths, **partition_paths, **tp_paths}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]

@@ -27,6 +27,14 @@ reference's ``tool/train.py:269-276``), the logged losses are the mean
 over the ranks and the histograms their sum (``tool/train.py:279-290``),
 in one collective without a host sync, and the dropout seed folds in the
 rank.
+
+Under tensor parallelism the model holds its TP shard
+(``build_model(tp_group=...)``) and ``process_group`` is the rank's data
+group (None for a single data rank): DDP, the metrics and the dropout
+seed's rank are the data group's, so TP peers, which hold the same
+samples, draw the same masks and count once. :meth:`Trainer.state_dict`
+then gathers the full model and momentum (a collective of the TP group)
+and :meth:`Trainer.load_state_dict` takes a full one and keeps the shard.
 """
 
 from __future__ import annotations
@@ -127,11 +135,12 @@ class Trainer:
         self.module = model.train()
         self.model = self.module
         self.group = process_group
-        self.rank = 0
+        self.tp = getattr(model, "tp", None)
+        self.rank = 0  # in the data group
         self.num_replicas = num_replicas
         if process_group is not None:
             device = next(model.parameters()).device
-            self.rank = dist.get_rank()
+            self.rank = dist.get_rank(process_group)
             self.model = DistributedDataParallel(
                 model, device_ids=[device] if device.type == "cuda" else None,
                 process_group=process_group)
@@ -155,21 +164,42 @@ class Trainer:
     def state_dict(self) -> dict:
         """``{"step", "state_dict", "optimizer"}``: what a checkpoint holds
         (``engine/checkpoint.py``), live tensors on the model's device; the
-        model's own names, never DDP's ``module.``."""
-        return {"step": self.step_count, "state_dict": self.module.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        model's own names, never DDP's ``module.``. Under TP the full,
+        unsharded state, gathered over the TP group: every peer calls it."""
+        model_sd, opt_sd = self.module.state_dict(), self.optimizer.state_dict()
+        if self.tp is not None:
+            from semseg_torch.parallel.tensor import gather_tp_state, param_names
+
+            model_sd, opt_sd = gather_tp_state(model_sd, opt_sd,
+                                               param_names(self.module, self.optimizer),
+                                               self.tp)
+        return {"step": self.step_count, "state_dict": model_sd, "optimizer": opt_sd}
 
     def load_state_dict(self, state: dict) -> None:
         """Restore model, optimizer and step count (and with it the poly LR
-        and the dropout stream) from :meth:`state_dict` or a checkpoint."""
-        self.module.load_state_dict(state["state_dict"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
+        and the dropout stream) from :meth:`state_dict` or a checkpoint
+        (full, also under TP: the rank keeps its shard)."""
+        model_sd, opt_sd = state["state_dict"], state["optimizer"]
+        if self.tp is not None:
+            from semseg_torch.parallel.tensor import (
+                param_names,
+                shard_optimizer_state,
+                shard_state_dict,
+            )
+
+            tp = self.tp
+            model_sd = shard_state_dict(model_sd, tp.plan, tp.rank, tp.size)
+            opt_sd = shard_optimizer_state(opt_sd, param_names(self.module, self.optimizer),
+                                           tp.plan, tp.rank, tp.size)
+        self.module.load_state_dict(model_sd, strict=True)
+        self.optimizer.load_state_dict(opt_sd)
         self.step_count = int(state["step"])
 
     def validate_step(self, images, labels):
         """:func:`eval_step` on the trainer's model in eval mode (the model
-        itself, outside DDP: no collective); the model goes back to train
-        mode after. The sums are this process's own."""
+        itself, outside DDP: no collective but, under TP, the head's, so
+        every peer calls it); the model goes back to train mode after. The
+        sums are this process's own."""
         self.module.eval()
         try:
             return eval_step(self.module, images, labels, classes=self.classes,

@@ -66,7 +66,7 @@ def compute_dtype(cfg) -> torch.dtype:
 
 def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
                 seed: int = 0, train: bool = False, replicas: int = 1,
-                process_group=None):
+                process_group=None, tp_group=None):
     """The model described by ``cfg`` on ``device`` (``None``: the CUDA
     device, raising without one; the CPU only as ``device="cpu"``), with
     seeded random weights (load a checkpoint over them to serve real ones), in eval mode,
@@ -107,6 +107,12 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
             # None = auto (the CUDA kernels on CUDA); True/False force.
             fused_attention=getattr(cfg, "fused_attention", None), dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(seed))
+    if tp_group is not None:
+        import torch.distributed as dist
+
+        from semseg_torch.parallel.tensor import shard_model
+
+        shard_model(model, tp_group, dist.get_rank(tp_group), dist.get_world_size(tp_group))
     sync_bn = getattr(cfg, "sync_bn", None)
     sync_bn = True if sync_bn is None else bool(sync_bn)
     if process_group is not None:

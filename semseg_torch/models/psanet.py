@@ -16,6 +16,18 @@ channels-first. The PSA module, per direction:
 
 ``forward(x, zoom=False)`` returns the logits at feature resolution from
 the same weights; the fused stitch kernel does the zoom upsample itself.
+
+Under tensor parallelism (``parallel/tensor.py``; ``tp`` set by
+``build_model``) a direction runs its aggregation on the rank's channel
+shard: ``reduce`` keeps the rank's output channels, shrunk per channel;
+their gather feeds the attention head, whose two convs are sharded and
+gathered in turn (the logits conv's ``mask_h * mask_w`` channels unevenly
+when that count is odd); then the kernel runs on the rank's channels of x
+with the full A behind ``copy_to_tp``. That is exact: the forward is
+independent per channel, and the gradient of A, ``p * (x^T g / norm -
+sum_c g * out)``, is a sum over channels that ``copy_to_tp``'s all-reduce
+completes. The two directions' shards are gathered and concatenated in the
+unsharded order, ``proj`` is sharded and gathered before the unshrink.
 """
 
 from __future__ import annotations
@@ -36,6 +48,12 @@ from semseg_torch.ops.psamask import (
     psa_attention_matrix_cf,
 )
 from semseg_torch.ops.resize import resize_bilinear_align_corners_cf
+from semseg_torch.parallel.tensor import (
+    column_parallel,
+    copy_to_tp,
+    gather_from_tp,
+    sharded,
+)
 
 
 def use_fused_attention(fused_attention: Optional[bool], device) -> bool:
@@ -55,6 +73,8 @@ def _attention_head(mid: int, mask_hw: int) -> nn.Sequential:
 
 
 class PSA(nn.Module):
+    tp = None
+
     def __init__(self, in_channels: int = 2048, mid_channels: int = 512,
                  psa_type: int = BI_DIRECTION, compact: bool = False,
                  shrink_factor: int = 2, mask_h: int = 59, mask_w: int = 59,
@@ -79,14 +99,18 @@ class PSA(nn.Module):
         self.proj = nn.Sequential(*ConvBN(mid_channels * n_branch, in_channels, 1))
 
     def _branch(self, x, psa_type: int, reduce: nn.Module, attention: nn.Module):
-        """One attention direction: reduce, shrink, attend, aggregate."""
-        xr = reduce(x)
+        """One attention direction: reduce, shrink, attend, aggregate. The
+        result holds the channels of the rank's shard of ``reduce`` (all of
+        them without TP)."""
+        tp = self.tp if sharded(reduce[0]) else None  # reduce's channels split over tp
+        xr = reduce(copy_to_tp(x, tp))
         n, c, h, w = xr.shape
         if self.shrink_factor != 1:
             h = (h - 1) // self.shrink_factor + 1
             w = (w - 1) // self.shrink_factor + 1
             xr = resize_bilinear_align_corners_cf(xr, (h, w))
-        y = attention(xr)
+        y = gather_from_tp(xr, tp, reduce[0].out_channels)
+        y = column_parallel(column_parallel(y, self.tp, *attention[:3]), self.tp, attention[3])
         hw = h * w
         if self.compact:
             # Channels index absolute positions (reference
@@ -99,6 +123,7 @@ class PSA(nn.Module):
         else:
             a = psa_attention_matrix_cf(y, psa_type, self.mask_h, self.mask_w)
         del y  # free the logits before the aggregation (2 GB at shrink 1 in f32)
+        a = copy_to_tp(a, tp)  # its gradient sums over the channels of every rank
         x_flat = xr.reshape(n, c, hw)
         if self.psa_softmax and use_fused_attention(self.fused_attention, x.device):
             # A stays in the compute dtype: its values come from the
@@ -117,13 +142,16 @@ class PSA(nn.Module):
         return agg.reshape(n, c, h, w).to(x.dtype), (h, w)
 
     def forward(self, x):
+        tp = self.tp if sharded(self.reduce[0]) else None
+        mid = self.reduce[0].out_channels
         if self.psa_type in (COLLECT, DISTRIBUTE):
             feat, (h, w) = self._branch(x, self.psa_type, self.reduce, self.attention)
+            feat = gather_from_tp(feat, tp, mid)
         else:
             col, (h, w) = self._branch(x, COLLECT, self.reduce, self.attention)
             dis, _ = self._branch(x, DISTRIBUTE, self.reduce_p, self.attention_p)
-            feat = torch.cat([col, dis], 1)
-        feat = self.proj(feat)
+            feat = torch.cat([gather_from_tp(col, tp, mid), gather_from_tp(dis, tp, mid)], 1)
+        feat = column_parallel(feat, self.tp, *self.proj)
         if self.shrink_factor != 1:
             h = (h - 1) * self.shrink_factor + 1
             w = (w - 1) * self.shrink_factor + 1

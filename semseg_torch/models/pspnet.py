@@ -11,6 +11,12 @@ Port of ``semseg_tpu/models/pspnet.py`` (reference ``model/pspnet.py``):
 
 ``forward(x, zoom=False)`` returns the logits at feature resolution from
 the same weights; the fused stitch kernel does the zoom upsample itself.
+
+Under tensor parallelism (``parallel/tensor.py``; ``tp`` set by
+``build_model``) each PPM branch's conv and BN and the heads' 3x3 conv and
+BN run on the rank's output channels; each is gathered in the unsharded
+channel order before the concat or the dropout, and the logits conv stays
+replicated.
 """
 
 from __future__ import annotations
@@ -28,12 +34,15 @@ from semseg_torch.models.layers import (
 )
 from semseg_torch.models.resnet import SEG_DILATIONS, SEG_STRIDES, ResNet
 from semseg_torch.ops.pool import AdaptiveAvgPool2d
+from semseg_torch.parallel.tensor import column_parallel
 from semseg_torch.ops.resize import resize_bilinear_align_corners_cf
 
 
 class PPM(nn.Module):
     """Pyramid Pooling Module; branch ``i`` is ``features.{i}`` =
     (pool, conv, bn, relu)."""
+
+    tp = None
 
     def __init__(self, in_dim: int, reduction_dim: int, bins: Sequence[int]):
         super().__init__()
@@ -44,15 +53,24 @@ class PPM(nn.Module):
 
     def forward(self, x):
         size = x.shape[-2:]
-        out = [x] + [resize_bilinear_align_corners_cf(f(x), size)
-                     for f in self.features]
+        out = [x] + [resize_bilinear_align_corners_cf(
+            column_parallel(f[0](x), self.tp, *f[1:]), size) for f in self.features]
         return torch.cat(out, 1)
 
 
-def seg_head(in_dim: int, mid: int, classes: int, dropout: float):
+class SegHead(nn.Sequential):
     """``Sequential(conv, bn, relu, dropout, conv)``, the reference's
     ``cls``/``aux`` naming."""
-    return nn.Sequential(
+
+    tp = None
+
+    def forward(self, x):
+        conv, bn, relu, dropout, logits = self
+        return logits(dropout(column_parallel(x, self.tp, conv, bn, relu)))
+
+
+def seg_head(in_dim: int, mid: int, classes: int, dropout: float):
+    return SegHead(
         *ConvBN(in_dim, mid, 3, padding=1),
         Dropout2d(p=dropout),
         Conv2d(mid, classes, 1),

@@ -20,12 +20,20 @@ keys (``config/cityscapes/cityscapes_psanet50.yaml:44-49``) say how:
   one (its collectives take CPU and CUDA tensors, staged through the
   host).
 
-Tensor parallelism (``semseg_tpu/parallel/sharding_rules.py``) is not
-ported yet. Nothing here runs at import time.
+``model_parallel: M`` lays the ``W`` ranks out as JAX's ``(data, model)``
+mesh does (``semseg_tpu/parallel/mesh.py:27-35``), data-major
+(:func:`grid`): global rank ``r`` has data index ``r // M`` and model index
+``r % M``, so the ``M`` peers of a tensor-parallel group are neighbouring
+ranks, on one node when ``M`` divides ``len(train_gpu)``.
+:func:`grid_groups` makes the two families of subgroups: the TP groups
+(one data index, ``parallel/tensor.py`` shards the head over them) and the
+data groups (one model index: DDP, BatchNorm moments, the metrics).
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
@@ -127,6 +135,66 @@ def control_group(group):
     if dist.get_backend(group) == "gloo":
         return group
     return dist.new_group(backend="gloo")
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """``world`` ranks as ``data_world x model_parallel``, data-major."""
+
+    world: int
+    model_parallel: int
+
+    @property
+    def data_world(self) -> int:
+        return self.world // self.model_parallel
+
+    def data_index(self, rank: int) -> int:
+        return rank // self.model_parallel
+
+    def model_index(self, rank: int) -> int:
+        return rank % self.model_parallel
+
+    def tp_ranks(self, data_index: int) -> list:
+        """The global ranks of one TP group: one data index, every model
+        index, in model order."""
+        m = self.model_parallel
+        return list(range(data_index * m, (data_index + 1) * m))
+
+    def data_ranks(self, model_index: int) -> list:
+        """The global ranks of one data group: one model index."""
+        return list(range(model_index, self.world, self.model_parallel))
+
+
+def grid(world: int, model_parallel=1) -> Grid:
+    """The ``(data, model)`` grid of ``world`` ranks; a ``model_parallel``
+    that does not divide ``world`` raises with JAX's words
+    (``tool/train.py:79-83``)."""
+    m = int(model_parallel or 1)
+    if m < 1:
+        raise ValueError(f"model_parallel must be >= 1, got {m}")
+    if world % m:
+        raise ValueError(f"model_parallel {m} does not divide {world} devices")
+    return Grid(world, m)
+
+
+def grid_groups(g: Grid, rank: int):
+    """``(tp_group, data_group)`` of global ``rank``, on the default group's
+    backend: ``None`` for a family whose groups hold one rank (no TP at
+    ``model_parallel 1``, no data parallelism at ``model_parallel ==
+    world``). Every rank must call this in the same order: each creates
+    every TP group, then every data group."""
+    tp = data = None
+    if g.model_parallel > 1:
+        for d in range(g.data_world):
+            group = dist.new_group(g.tp_ranks(d))
+            if d == g.data_index(rank):
+                tp = group
+    if g.data_world > 1:
+        for m in range(g.model_parallel):
+            group = dist.new_group(g.data_ranks(m))
+            if m == g.model_index(rank):
+                data = group
+    return tp, data
 
 
 def shard_batch(batch, rank: int, world: int):

@@ -1,11 +1,13 @@
-"""The data-parallel train step held to one process: a few train steps on
-the same global batches, as ``world`` DDP ranks (each on its contiguous
-slice, :func:`ddp_steps`) or in one process with ``Trainer(num_replicas=
-world)`` (:func:`one_process_steps`), from the same seeded weights. The two
-compute the same function, ``make_train_step(num_replicas=world)``, in
-another order of their sums; :func:`relative_distances` measures how far
-apart they end. The tests run it on the CPU over gloo, ``chip_smoke.py``
-on the card.
+"""The data- and tensor-parallel train steps held to one process: a few
+train steps on the same global batches, as ``world`` DDP ranks (each on
+its contiguous slice, :func:`ddp_steps`), as a ``world / model_parallel x
+model_parallel`` grid of DDP and TP ranks (each TP group on one data
+slice, :func:`tp_steps`), or in one process with ``Trainer(num_replicas=
+data ranks)`` (:func:`one_process_steps`), from the same seeded weights.
+They compute the same function, ``make_train_step(num_replicas=data
+ranks)``, in another order of their sums; :func:`relative_distances`
+measures how far apart they end. The tests run it on the CPU over gloo,
+``chip_smoke.py`` on the card.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ class StepSpec:
     base_lr: float = 0.002
 
 
-def _trainer(spec: StepSpec, device, num_replicas=1, process_group=None):
+def _trainer(spec: StepSpec, device, num_replicas=1, process_group=None, tp_group=None):
     from semseg_torch.engine.optim import make_sgd
     from semseg_torch.engine.trainer import Trainer
     from semseg_torch.models.build import COMPUTE_DTYPES, build_model
@@ -45,7 +47,7 @@ def _trainer(spec: StepSpec, device, num_replicas=1, process_group=None):
 
     model = build_model(spec.cfg, dtype=COMPUTE_DTYPES[spec.dtype], device=device,
                         seed=SEED, train=True, replicas=num_replicas,
-                        process_group=process_group)
+                        process_group=process_group, tp_group=tp_group)
     # Dropout off: ranks draw their masks from rank-folded seeds, one
     # process from one draw over the batch, so the two cannot agree.
     for m in model.modules():
@@ -76,7 +78,8 @@ def _steps(tr: "Trainer", batches, device, rank=0, world=1):
         out["losses"].append([m[k].item() for k in ("loss", "main_loss", "aux_loss")])
         out["seconds"].append(time.perf_counter() - t0)
         out["launches"].append({k: fn.launches for k, fn in counters.items()})
-    out["state"] = {k: v.detach().cpu().numpy() for k, v in tr.module.state_dict().items()}
+    out["state"] = {k: v.detach().cpu().numpy()
+                    for k, v in tr.state_dict()["state_dict"].items()}
     return out
 
 
@@ -95,22 +98,27 @@ def one_process_steps(spec: StepSpec, num_replicas: int) -> dict:
     return {**_steps(tr, spec.batches, device), "init": init}
 
 
-def _rank_steps(local_rank, spec: StepSpec, world: int, url: str):
-    """One DDP rank of :func:`ddp_steps` (a spawned process)."""
+def _rank_steps(rank, spec: StepSpec, world: int, model_parallel: int, url: str):
+    """One rank of :func:`ddp_steps` or :func:`tp_steps` (a spawned
+    process)."""
     import torch.distributed as dist
 
-    from semseg_torch.parallel.dist import init_process_group
+    from semseg_torch.parallel.dist import grid, grid_groups, init_process_group
 
     device = _device(spec)
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.cuda.reset_peak_memory_stats(device)
-    group = init_process_group(url, "gloo", local_rank, world)
+    group = init_process_group(url, "gloo", rank, world)
     try:
-        out = _steps(_trainer(spec, device, process_group=group), spec.batches, device,
-                     local_rank, world)
-        if local_rank:
-            del out["state"]  # equal on every rank after DDP's averaged step
+        g = grid(world, model_parallel)
+        tp_group, data_group = grid_groups(g, rank) if model_parallel > 1 else (None, group)
+        tr = _trainer(spec, device, process_group=data_group, tp_group=tp_group)
+        out = _steps(tr, spec.batches, device, g.data_index(rank), g.data_world)
+        out["shard_rows"] = {k: v.shape[0] for k, v in tr.module.state_dict().items()
+                             if tr.tp is not None and k in tr.tp.plan}
+        if rank:
+            del out["state"]  # the same on every rank (under TP, gathered on each)
         out["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2 ** 30
                            if device.type == "cuda" else None)
         dist.barrier()
@@ -119,15 +127,26 @@ def _rank_steps(local_rank, spec: StepSpec, world: int, url: str):
         dist.destroy_process_group()
 
 
-def ddp_steps(spec: StepSpec, world: int, timeout_s: float = 600) -> list:
-    """The steps as ``world`` DDP ranks in fresh processes, rank r on the
-    r-th contiguous slice of every global batch: one result a rank as
-    :func:`one_process_steps`' (the ``state`` on rank 0 only), plus
-    ``peak_gib`` (CUDA)."""
-    from semseg_torch.parallel.dist import free_port, spawn
+def tp_steps(spec: StepSpec, world: int, model_parallel: int, timeout_s: float = 600) -> list:
+    """The steps as ``world`` ranks in fresh processes over gloo, a grid of
+    ``world / model_parallel`` data ranks by ``model_parallel`` TP peers
+    (``parallel/dist.py::grid``): each TP group on its contiguous data
+    slice of every global batch, the head sharded over it. One result a
+    rank as :func:`one_process_steps`' (the full, gathered ``state`` on
+    rank 0 only), plus ``peak_gib`` (CUDA) and ``shard_rows``: the rank's
+    output channels of each sharded entry."""
+    from semseg_torch.parallel.dist import free_port, grid, spawn
 
-    return spawn(_rank_steps, world, (spec, world, f"tcp://127.0.0.1:{free_port()}"),
+    grid(world, model_parallel)
+    return spawn(_rank_steps, world,
+                 (spec, world, model_parallel, f"tcp://127.0.0.1:{free_port()}"),
                  timeout_s=timeout_s)
+
+
+def ddp_steps(spec: StepSpec, world: int, timeout_s: float = 600) -> list:
+    """:func:`tp_steps` at ``model_parallel`` 1: ``world`` DDP ranks, rank
+    r on the r-th contiguous slice of every global batch."""
+    return tp_steps(spec, world, 1, timeout_s)
 
 
 def relative_distances(got: dict, want: dict, init: dict) -> dict:

@@ -56,8 +56,19 @@ augments in the native pipeline (``data/native.py``), built at first use.
 ``profile_dir``: rank 0 traces the first epoch it trains (its validation
 included) with ``torch.profiler`` (CPU and CUDA activities) and writes a
 Chrome trace, ``<profile_dir>/train_epoch_<N>.pt.trace.json``
-(``tool/train.py:426-485``). Not ported (:func:`check_unported`):
-``model_parallel`` above 1 raises.
+(``tool/train.py:426-485``).
+
+``model_parallel: M`` (``tool/train.py:74-90``) lays the ``W`` ranks out
+as ``W / M`` data ranks by ``M`` tensor-parallel peers
+(``parallel/dist.py::grid``; ``W % M`` raises with JAX's words): each TP
+group holds the head's wide layers split by output channel
+(``parallel/tensor.py``) and trains on one data shard, so the loaders,
+the batch split, DDP, BatchNorm's moments, the metrics and the dropout
+seed go by the data rank and the data world, and the global batch must
+divide by ``W / M``. Validation runs the head's collectives, so every
+rank runs it. Rank 0 writes full, unsharded checkpoints (gathered over
+its TP group), which load strictly into a one-process model; ``resume``
+shards them again, and a one-process checkpoint resumes under TP.
 """
 
 from __future__ import annotations
@@ -100,17 +111,6 @@ def _finish(cfg, steps):
     return transform.Compose(steps + tail), (Uint8Wire if uint8 else (lambda d: d))
 
 
-def check_unported(cfg) -> None:
-    """The keys whose feature the port lacks. ``model_parallel > 1`` raises:
-    JAX's driver splits the devices into data x model
-    (``tool/train.py:74-85``), so with ``sync_bn: False`` its BatchNorm
-    takes ``devices / model_parallel`` groups (``models/build.py:73``);
-    training on as if it were 1 would compute another step."""
-    if int(_get(cfg, "model_parallel", 1)) > 1:
-        raise ValueError(f"model_parallel {cfg.model_parallel}: tensor parallelism is not "
-                         "ported; the port trains data-parallel only (model_parallel 1)")
-
-
 class _EpochTrace:
     """``profile_dir``'s trace: a ``torch.profiler`` window (CPU activity,
     and CUDA on a CUDA device) from :meth:`start` to :meth:`write`, which
@@ -151,12 +151,20 @@ class _EpochTrace:
             self.prof = None
 
 
-def per_rank_batch(batch_size: int, world: int, key: str = "batch_size") -> int:
-    """A global batch's share of one of ``world`` ranks; a batch the rank
-    count does not divide raises (JAX ``tool/train.py:143-152``)."""
-    if batch_size % world:
-        raise ValueError(f"{key} {batch_size} not divisible by {world} ranks")
-    return batch_size // world
+def per_rank_batch(batch_size: int, world: int, key: str = "batch_size",
+                   model_parallel: int = 1) -> int:
+    """A global batch's share of each data rank of ``world`` ranks at
+    ``model_parallel`` (``world / model_parallel`` data ranks: TP peers
+    share one slice); a batch the data ranks do not divide raises (JAX
+    ``tool/train.py:143-152``), as does a ``model_parallel`` that does not
+    divide ``world``."""
+    from semseg_torch.parallel.dist import grid
+
+    data = grid(world, model_parallel).data_world
+    if batch_size % data:
+        tail = f" ({world} ranks / model_parallel {model_parallel})" if model_parallel > 1 else ""
+        raise ValueError(f"{key} {batch_size} not divisible by {data} ranks{tail}")
+    return batch_size // data
 
 
 def build_train_loader(cfg, logger=None, rank=0, world=1):
@@ -298,7 +306,13 @@ def _load_start(cfg, model, logger):
 def _merge(model, state_dict, path, logger):
     """Load ``state_dict`` over ``model`` where its keys exist (strict=False,
     as ``tool/train.py::_merge``), logging the keys on either side that
-    found no partner."""
+    found no partner. Under TP the planned entries are cut to the rank's
+    shard first."""
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        from semseg_torch.parallel.tensor import shard_state_dict
+
+        state_dict = shard_state_dict(state_dict, tp.plan, tp.rank, tp.size)
     res = model.load_state_dict(state_dict, strict=False)
     if res.missing_keys:
         logger.info("=> %d model keys not in '%s' keep their values", len(res.missing_keys),
@@ -308,10 +322,10 @@ def _merge(model, state_dict, path, logger):
                        res.unexpected_keys[:8])
 
 
-def _resume(cfg, trainer, logger, control=None):
+def _resume(cfg, trainer, logger, rank=0, control=None):
     """``resume`` (a path or ``auto``) into ``trainer``; the start epoch.
-    Over several ranks, rank 0 resolves ``auto`` and ``control`` (a CPU
-    group) carries its answer to the others."""
+    Over several ranks, global rank 0 resolves ``auto`` and ``control`` (a
+    CPU group) carries its answer to the others."""
     from semseg_torch.engine import checkpoint as ckpt
     from semseg_torch.parallel.dist import broadcast_object
 
@@ -320,7 +334,7 @@ def _resume(cfg, trainer, logger, control=None):
     if not path:
         return start_epoch
     if path == "auto":
-        path = ckpt.latest_checkpoint(cfg.save_path) if trainer.rank == 0 else None
+        path = ckpt.latest_checkpoint(cfg.save_path) if rank == 0 else None
         if control is not None:
             path = broadcast_object(path, control)
     if path and os.path.isfile(path):
@@ -335,9 +349,10 @@ def _resume(cfg, trainer, logger, control=None):
 
 
 def run(cfg, device, logger=None, step_hook=None, process_group=None):
-    """Train as ``cfg`` says on ``device``: in this process, or as one DDP
-    rank of ``process_group`` (which every rank has joined; :func:`spawn`
-    starts them). ``step_hook(iteration, metrics)``, if given, is called
+    """Train as ``cfg`` says on ``device``: in this process, or as one rank
+    of ``process_group`` (which every rank has joined; :func:`spawn` starts
+    them): a DDP rank, or under ``model_parallel`` a rank of the data x
+    model grid. ``step_hook(iteration, metrics)``, if given, is called
     after every step. Returns ``{"trainer": the Trainer, "epochs":
     [per-epoch train stats], "val": [per-epoch validation stats],
     "checkpoints": [epoch saves], "preempt": the snapshot's path or
@@ -346,7 +361,7 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
     from semseg_torch.engine.optim import make_sgd
     from semseg_torch.engine.trainer import Trainer
     from semseg_torch.models.build import build_model, compute_dtype, validate_arch
-    from semseg_torch.parallel.dist import control_group
+    from semseg_torch.parallel.dist import control_group, grid, grid_groups
     from semseg_torch.utils.misc import check_makedirs, get_logger
 
     rank, world = 0, 1
@@ -355,23 +370,29 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
         world = torch.distributed.get_world_size(process_group)
     logger = (logger or get_logger()) if rank == 0 else _quiet_logger()
     validate_arch(cfg)
-    check_unported(cfg)
+    ranks = grid(world, _get(cfg, "model_parallel", 1))
     seed = _get(cfg, "manual_seed", 0)
     random.seed(seed)
     np.random.seed(seed)
     device = torch.device(device)
     control = control_group(process_group) if process_group is not None else None
+    tp_group, data_group = None, process_group
+    if ranks.model_parallel > 1:
+        tp_group, data_group = grid_groups(ranks, rank)
+    data_rank, data_world = ranks.data_index(rank), ranks.data_world
 
     dtype = compute_dtype(cfg)
     model = build_model(cfg, dtype=dtype, device=device, seed=seed, train=True,
-                        process_group=process_group)
-    logger.info("=> creating model %s%d, classes %d, compute dtype %s, on %s%s",
+                        process_group=data_group, tp_group=tp_group)
+    logger.info("=> creating model %s%d, classes %d, compute dtype %s, on %s%s%s",
                 cfg.arch, cfg.layers, cfg.classes, dtype, device,
                 f" and {world - 1} more ranks (sync_bn {_get(cfg, 'sync_bn', True)})"
-                if world > 1 else "")
+                if world > 1 else "",
+                f", data x model = {data_world} x {ranks.model_parallel}"
+                if tp_group is not None else "")
     _load_start(cfg, model, logger)
 
-    loader, normalize = build_train_loader(cfg, logger, rank, world)
+    loader, normalize = build_train_loader(cfg, logger, data_rank, data_world)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise ValueError(f"batch_size {cfg.batch_size} exceeds the {len(loader.dataset)} "
@@ -382,8 +403,8 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
         classes=cfg.classes, ignore_label=cfg.ignore_label, aux_weight=cfg.aux_weight,
         base_lr=cfg.base_lr, max_iter=max_iter, power=cfg.power,
         zoom_factor=cfg.zoom_factor, rng_seed=seed, normalize=normalize,
-        process_group=process_group)
-    start_epoch = _resume(cfg, trainer, logger, control)
+        process_group=data_group)
+    start_epoch = _resume(cfg, trainer, logger, rank, control)
 
     # Mid-epoch resume: the step counts the batches of the epoch in progress
     # already consumed; the loader skips them (tool/train.py:324-338).
@@ -397,7 +418,8 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
         logger.info("=> mid-epoch resume: skipping %d consumed batches of epoch %d",
                     consumed, start_epoch + 1)
 
-    val_loader = build_val_loader(cfg, rank, world) if _get(cfg, "evaluate") else None
+    val_loader = (build_val_loader(cfg, data_rank, data_world) if _get(cfg, "evaluate")
+                  else None)
     if rank == 0:
         check_makedirs(cfg.save_path)
         writer = _JsonlWriter(os.path.join(cfg.save_path, "scalars.jsonl"))
@@ -419,6 +441,8 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
             pass
 
     result = {"trainer": trainer, "epochs": [], "val": [], "checkpoints": [], "preempt": None}
+    # Rank 0 writes; under TP its TP peers take part in gathering the state.
+    gathers = data_rank == 0 if tp_group is not None else rank == 0
     trace = _EpochTrace(_get(cfg, "profile_dir") if rank == 0 else None, device, logger)
 
     def landed():
@@ -439,8 +463,9 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
                 trace.write(epoch + 1)
                 ckpt.wait_pending()  # a snapshot waits for the save in flight
                 path = ckpt.preempt_checkpoint_path(cfg.save_path)
+                state = trainer.state_dict() if gathers else None
                 if rank == 0:
-                    ckpt.save_preempt_checkpoint(cfg.save_path, epoch, trainer.state_dict())
+                    ckpt.save_preempt_checkpoint(cfg.save_path, epoch, state)
                     logger.info("Preemption checkpoint saved to: %s", path)
                 landed()
                 result["preempt"] = path
@@ -450,10 +475,11 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
                 writer.add_scalar(f"{key}_train", stats[key], epoch + 1)
             if (epoch + 1) % cfg.save_freq == 0:
                 path = ckpt.checkpoint_path(cfg.save_path, epoch + 1)
+                state = trainer.state_dict() if gathers else None
                 if rank == 0:
                     save = (ckpt.save_checkpoint_async if _get(cfg, "async_save", True)
                             else ckpt.save_checkpoint)
-                    save(cfg.save_path, epoch + 1, trainer.state_dict(), cfg.save_freq)
+                    save(cfg.save_path, epoch + 1, state, cfg.save_freq)
                     logger.info("Saving checkpoint to: %s", path)
                 result["checkpoints"].append(path)
             if val_loader is not None:
@@ -657,9 +683,10 @@ def _rank_main(local_rank, cfg, device_type, backend, url, step_hook=None):
 def spawn(cfg, device="cuda", timeout_s=None, step_hook=None):
     """Train as ``cfg`` says with one process per ``train_gpu`` entry on
     this node (``world_size`` nodes in all; each node starts its own with
-    its ``rank``): DDP ranks on ``cuda:{train_gpu[local]}``, or on the CPU
-    for ``device="cpu"`` (then ``dist_backend`` must name gloo). Checks the
-    devices and the batch sizes, builds the CUDA kernels once (ranks would
+    its ``rank``): DDP ranks, or the data x model grid of
+    ``model_parallel``, on ``cuda:{train_gpu[local]}``, or on the CPU for
+    ``device="cpu"`` (then ``dist_backend`` must name gloo). Checks the
+    devices, the grid and the batch sizes, builds the CUDA kernels once (ranks would
     race ``build_library`` into one directory), then starts the ranks (the
     ``spawn`` start method) and waits for them, at most ``timeout_s``
     (None: no limit); a rank that raises fails the call. While it waits,
@@ -669,14 +696,15 @@ def spawn(cfg, device="cuda", timeout_s=None, step_hook=None):
     every step. Returns each local rank's summary (:func:`_rank_main`)."""
     from semseg_torch.parallel import dist as pdist
 
-    check_unported(cfg)  # raise before any rank starts
     device_type = torch.device(device).type
     backend = pdist.backend_name(cfg, device_type)
     pdist.check_devices(cfg, backend, device_type)
     world = pdist.world_size(cfg)
-    per_rank_batch(cfg.batch_size, world)
+    model_parallel = _get(cfg, "model_parallel", 1)
+    # Raise before any rank starts.
+    per_rank_batch(cfg.batch_size, world, model_parallel=model_parallel)
     if _get(cfg, "evaluate"):
-        per_rank_batch(cfg.batch_size_val, world, "batch_size_val")
+        per_rank_batch(cfg.batch_size_val, world, "batch_size_val", model_parallel)
     if device_type == "cuda":
         from semseg_torch.ops._build import build_library
 

@@ -195,6 +195,7 @@ def test_psa_kernels_match_plain(cuda, n, c, hw, dtype):
 @pytest.mark.parametrize("n,c,hw", [
     (1, 130, 97),     # two channel tiles of 128, ragged stages
     (3, 16, 200),     # one M tile per warpgroup, four query tiles
+    (8, 256, 2025),   # a TP rank's channels (model_parallel 2): two M tiles
     (8, 512, 2025),   # Cityscapes PSANet, served (4 launches an image)
     (16, 512, 2025),  # Cityscapes PSANet, trained at batch 16
 ])
@@ -231,6 +232,7 @@ def test_wgmma_kernels_match_plain(cuda, n, c, hw):
 @pytest.mark.parametrize("n,c,hw", [
     (1, 130, 97),     # three channel stages, one ragged; one ragged tile
     (3, 16, 200),     # one stage, two tiles each way
+    (8, 256, 2025),   # a TP rank's channels (model_parallel 2)
     (8, 512, 2025),   # Cityscapes PSANet at batch 8
     (16, 512, 2025),  # Cityscapes PSANet, trained at batch 16
 ])
@@ -287,6 +289,7 @@ def test_wgmma_kernels_reject_what_they_do_not_take(cuda):
     (2, 24, 100),    # one M tile per warpgroup (128 channels a block)
     (1, 130, 97),    # 256 channels a block, ragged stages
     (8, 512, 900),   # ADE20K PSANet: 512 channels a block
+    (8, 256, 2025),  # a TP rank's channels (model_parallel 2)
     (8, 512, 2025),  # Cityscapes PSANet (an f32 train step at batch 8)
 ])
 def test_tf32x3_kernels_match_plain(cuda, n, c, hw):
@@ -406,6 +409,7 @@ def _da_f32_bars(x, a, g, m, l, out, norm):
     (2, 16, 70),      # one channel stage, one ragged tile
     (1, 130, 97),     # five stages, the last ragged
     (3, 16, 200),     # two tiles each way
+    (8, 256, 2025),   # a TP rank's channels (model_parallel 2)
     (8, 512, 2025),   # Cityscapes PSANet (an f32 train step at batch 8)
 ])
 def test_f32_da_runs_the_tf32x3_kernel(cuda, n, c, hw):
@@ -941,6 +945,47 @@ def test_ddp_step_on_the_card_matches_one_process(cuda, dtype, per_step):
     d_floor = parity.relative_distances(floor["state"], ref["state"], ref["init"])
     assert max(d_ddp.values()) <= 3 * max(d_floor.values())
     assert np.median(list(d_ddp.values())) <= 3 * np.median(list(d_floor.values()))
+
+
+def test_tp_step_on_the_card_matches_one_process(cuda):
+    """One f32 PSANet50 train step at 97x97 crops, global batch 2, as 1 x 2
+    (data x model) ranks sharing the card over gloo, the head split by
+    output channel (``semseg_torch.parallel.tensor``), against the
+    one-process ``Trainer(num_replicas=1)``: the losses bit-identical on
+    both ranks and within 1e-5 relative of one process; each rank launches
+    the 3xTF32 forward, da and dx twice, on its 256 channels of ``reduce``,
+    and nothing else; the gathered state within 3 times (max and median
+    over the entries) the distance of two one-process runs whose images
+    differ by one float32 ulp."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from semseg_torch.ops import launch_counters
+    from semseg_torch.parallel import parity
+
+    cfg = SimpleNamespace(arch="psa", layers=50, classes=19, zoom_factor=8, train_h=97,
+                          train_w=97, psa_type=2, compact=0, shrink_factor=2,
+                          normalization_factor=1.0, psa_softmax=1)
+    rs = np.random.RandomState(4)
+    images = rs.randn(2, 97, 97, 3).astype(np.float32)
+    labels = rs.randint(0, 19, (2, 97, 97))
+    spec = parity.StepSpec(cfg=cfg, batches=[(images, labels)], base_lr=0.01, device="cuda")
+    ref = parity.one_process_steps(spec, 1)
+    ranks = parity.tp_steps(spec, 2, 2, timeout_s=300)
+    per_step = {"psa_softmax_bmm_tf32x3": 2, "psa_softmax_bmm_bwd_da_tf32x3": 2,
+                "psa_softmax_bmm_bwd_dx_tf32x3": 2}
+    want = {k: per_step.get(k, 0) for k in launch_counters() if k.endswith(("_wgmma", "_tf32x3"))}
+    for r in ranks:
+        assert {k: r["launches"][0][k] for k in want} == want
+        assert r["losses"] == ranks[0]["losses"]
+        assert r["shard_rows"]["psa.reduce.0.weight"] == 256
+    np.testing.assert_allclose(ranks[0]["losses"][0], ref["losses"][0], rtol=1e-5)
+    moved = np.nextafter(images, np.float32(np.inf))
+    floor = parity.one_process_steps(dataclasses.replace(spec, batches=[(moved, labels)]), 1)
+    d_tp = parity.relative_distances(ranks[0]["state"], ref["state"], ref["init"])
+    d_floor = parity.relative_distances(floor["state"], ref["state"], ref["init"])
+    assert max(d_tp.values()) <= 3 * max(d_floor.values())
+    assert np.median(list(d_tp.values())) <= 3 * np.median(list(d_floor.values()))
 
 
 # Run by test_cuda_export_keeps_the_psa_kernel in a fresh interpreter: TF32

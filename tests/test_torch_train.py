@@ -478,18 +478,44 @@ def test_train_run_and_refusals(tmp_path):
             train.main(_train_args(tmp_path))
 
 
-def test_model_parallel_raises(tmp_path):
-    """``model_parallel > 1`` (tensor parallelism, not ported) raises in
-    ``run`` and in ``spawn`` before any model is built or rank started, as
-    JAX's data x model split would compute another step; 1 trains."""
+def test_model_parallel_needs_a_dividing_world(tmp_path):
+    """``model_parallel`` that does not divide the ranks raises with JAX's
+    words (``tool/train.py:79-83``): in ``run`` in one process (1 rank),
+    and in ``spawn`` before any rank starts (3 ranks); the grid is
+    data-major, so TP peers are neighbouring ranks."""
     from semseg_torch import train
+    from semseg_torch.parallel.dist import grid
 
     cfg = train.parse_args(_train_args(tmp_path, "model_parallel", "2"))
-    with pytest.raises(ValueError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="model_parallel 2 does not divide 1 devices"):
         train.run(cfg, "cpu")
-    with pytest.raises(ValueError, match="tensor parallelism"):
+    cfg = train.parse_args(_train_args(tmp_path, "model_parallel", "2", "train_gpu", "[0, 0, 0]",
+                                       "dist_backend", "gloo", "batch_size", "3"))
+    with pytest.raises(ValueError, match="model_parallel 2 does not divide 3 devices"):
         train.spawn(cfg, "cpu")
-    train.check_unported(train.parse_args(_train_args(tmp_path, "model_parallel", "1")))
+    g = grid(8, 2)
+    assert (g.data_world, g.data_index(5), g.model_index(5)) == (4, 2, 1)
+    assert g.tp_ranks(2) == [4, 5] and g.data_ranks(1) == [1, 3, 5, 7]
+    assert grid(4, None).model_parallel == 1
+
+
+def test_model_parallel_batch_divides_by_the_data_ranks():
+    """Under ``model_parallel M`` over ``W`` ranks the global batch splits
+    over the ``W / M`` data ranks (TP peers load the same samples), not
+    over ``W``: 2 over 4 ranks at M 2 gives 1 a data rank, at M 4 the whole
+    2; a batch the data ranks do not divide raises and names the split."""
+    from semseg_torch.train import per_rank_batch
+
+    assert per_rank_batch(2, 4, model_parallel=2) == 1
+    assert per_rank_batch(2, 4, model_parallel=4) == 2
+    assert per_rank_batch(6, 2) == 3
+    with pytest.raises(ValueError, match=r"batch_size 3 not divisible by 2 ranks \(4 ranks / "
+                                         r"model_parallel 2\)"):
+        per_rank_batch(3, 4, model_parallel=2)
+    with pytest.raises(ValueError, match="batch_size_val 2 not divisible by 4 ranks$"):
+        per_rank_batch(2, 4, "batch_size_val")
+    with pytest.raises(ValueError, match="model_parallel 3 does not divide 4 devices"):
+        per_rank_batch(4, 4, model_parallel=3)
 
 
 def test_profile_dir_is_logged_and_ignored(tmp_path):

@@ -83,3 +83,51 @@ def sleeps(rank):
 
     time.sleep(60)
     return rank
+
+
+def tp_psa_module(rank, url, x, cot):
+    """Rank ``rank`` of 2 over gloo: a train-mode PSA module (2048 -> 512,
+    bi-direction, shrink 2, a 17x17 mask: 289 attention channels, split 145
+    and 144) built whole from seed 0, and its TP shard; the forward and
+    backward of both on the NCHW ``x`` with the cotangent ``cot``. Returns
+    the shard's output and input gradient, the whole module's, and each
+    sharded parameter's gradient beside the rank's slice of the whole
+    module's."""
+    import copy
+
+    import torch.distributed as dist
+
+    from semseg_torch.models.layers import torch_default_conv_init_
+    from semseg_torch.models.psanet import PSA
+    from semseg_torch.parallel import dist as pdist
+    from semseg_torch.parallel import tensor
+
+    group = pdist.init_process_group(url, "gloo", rank, 2, timeout_s=120)
+    try:
+        holder = torch.nn.Module()
+        holder.psa = PSA(2048, 512, psa_type=2, shrink_factor=2, mask_h=17, mask_w=17,
+                         normalization_factor=289.0)
+        gen = torch.Generator().manual_seed(0)
+        for m in holder.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                torch_default_conv_init_(m, gen)
+        whole = copy.deepcopy(holder).train()
+        tp = tensor.shard_model(holder, group, rank, 2)
+        holder.train()
+        out = {"sizes": tensor.split_sizes(tp.plan["psa.attention.3.weight"], 2)}
+        for name, model in (("whole", whole), ("tp", holder)):
+            xt = torch.from_numpy(x).requires_grad_()
+            y = model.psa(xt)
+            y.backward(torch.from_numpy(cot))
+            out[name] = {"y": y.detach().numpy(), "dx": xt.grad.numpy()}
+        full_grads = dict(whole.named_parameters())
+        out["grads"] = {}
+        for k, p in holder.named_parameters():
+            want = full_grads[k].grad
+            if k in tp.plan:
+                want = torch.tensor_split(want, 2)[rank]
+            out["grads"][k] = (p.grad.numpy(), want.numpy())
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
