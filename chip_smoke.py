@@ -12,7 +12,9 @@ user's workflow through the drivers: train with validation, a preemption
 snapshot, resume, the test driver and the demo (phase 20); two DDP ranks
 sharing the card (phase 21); the serving export of both models (phase
 22); and the evaluator's window and spatial partitions over two entries of
-the card and its host pipeline (phase 23). The CUDA
+the card and its host pipeline (phase 23); tensor-parallel ranks (phase
+24); and the bf16-vs-f32 convergence license and the launch scripts
+(phase 25). The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
 each (12 runs after 4):
 
@@ -159,7 +161,25 @@ each (12 runs after 4):
    f32, 1 image,
    against device mode at JAX's bar (atol 2e-2, rtol 1e-2, agreement >
    0.995). images/s of each path, two entries on one card, not a scaling
-   number.
+   number;
+24. tensor parallelism (``model_parallel 2``) as ranks sharing the card
+   over gloo: the PSA kernels at a rank's C = 256 against plain with the
+   bars of phases 4 and 12, one f32 PSANet50 step as 1 x 2 and 2 x 2
+   (data x model) against one process, the bf16 driver through ``spawn``;
+25. the bf16-vs-f32 convergence license (``semseg_torch/convergence.py``,
+   97x97 crops, batch 8, 6 classes): the PSA forward, da and dx at (8,
+   512, 49), less than one tile, against plain with the bars of phases 4
+   and 12; then ``convergence.run`` for PSPNet50 and PSANet50, the f32 arm
+   then the bf16 arm from one f32 init (seed 0, 400 steps): initial states
+   bit for bit the init, TF32 off in the f32 arm, finite losses, exact
+   launches (PSANet50: 2 forwards, 2 da and 2 dx of the dtype a step, 2
+   forwards a validation batch; PSPNet50: none), every final val mIoU >=
+   0.5 and |gap| < 10 points (the JAX tool's 1-point verdict printed
+   beside); beside the arms, in processes of its own,
+   ``semseg_torch/tool/train.sh`` on a PSANet50 config in
+   ``build/chip_smoke/launch/``: exit 0, the snapshot, the timestamped
+   train and test logs, the checkpoint, the PNGs, and the kernels built
+   under the snapshot's own ``build/``.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -178,8 +198,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root.
 import dataclasses
 import json
 import logging
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1721,8 +1743,6 @@ def spawn_driver(cfg, save):
     """``semseg_torch.train.spawn(cfg, "cuda")`` into a fresh ``save``
     directory, the ranks' log lines in ``save/ranks.log``: ``(summaries,
     log text, seconds, log path)``."""
-    import os
-
     from semseg_torch.train import spawn
 
     shutil.rmtree(save, ignore_errors=True)
@@ -1874,8 +1894,6 @@ def phase_export(dev, images, smi):
     (PSANet50) and none (PSPNet50), images/s beside ``predict``'s. Trace,
     save and load seconds and artifact sizes. Returns the launch counts by
     path."""
-    import os
-
     from semseg_torch.engine.evaluator import SlidingWindowEvaluator
     from semseg_torch.engine.export import export_serving, export_sliding_window, make_serving_fn
     from semseg_torch.models.build import build_model
@@ -2259,6 +2277,211 @@ def phase_tp(dev, root, smi, one_rank_images_per_s):
     return by_path, fwd, bwd
 
 
+# Phase 25: the bf16-vs-f32 convergence license (``semseg_torch/
+# convergence.py``) at 97x97 crops, batch 8. PSANet50's PSA feature there is
+# 7x7: the kernels run at hw 49, less than one tile.
+CONV_EXTENTS = (("convergence-97", 8, 512, 49),)
+CONV_STEPS = {"psp": 400, "psa": 400}
+CONV_SEED = 0
+# Each arm's final val mIoU: the JAX tool's arms finished at 0.741-0.750
+# after 400 steps (CONVERGENCE_r03.jsonl), so a broken recipe falls far
+# below this bar while seed noise does not reach it.
+CONV_MIN_MIOU = 0.5
+# |gap| in points, against a bf16 arm that trains but falls far behind. A
+# coupled pair's gap is heavy-tailed on the H100 (NVIDIA H100 80GB HBM3,
+# 700 W; chip_probes/convergence_sigma.py, 148 pairs over seeds 0-66):
+# sigma_gap 1.65 (PSPNet50) and 2.05 (PSANet50) points, 13 pairs at 3
+# points or more, the largest 8.65. So 3 points would fail a correct
+# program after any change of one bit of the arithmetic; the bar sits
+# beyond every pair measured. The JAX tool's own criterion, 1 point, is
+# printed beside.
+CONV_MAX_GAP = 10.0
+
+
+def psa_arm_launches(dtype_name, steps, evals):
+    """An arm's PSA launches: two directions a forward, so 2 forwards, 2
+    da and 2 dx a train step and 2 forwards a validation batch."""
+    from semseg_torch import convergence as conv
+
+    kind = "tf32x3" if dtype_name == "float32" else "wgmma"
+    fwd = 2 * steps + 2 * evals * (conv.N_VAL // conv.BATCH)
+    return launches(**{f"psa_softmax_bmm_{kind}": fwd,
+                       f"psa_softmax_bmm_bwd_da_{kind}": 2 * steps,
+                       f"psa_softmax_bmm_bwd_dx_{kind}": 2 * steps})
+
+
+def phase_convergence(dev, smi):
+    """The convergence license on the card (phase 25): (a) the PSA forward,
+    da and dx at (8, 512, 49), bf16 and f32, against their plain versions
+    with the bars of phases 4 and 12; (b) ``convergence.run`` for PSPNet50
+    and PSANet50, the f32 arm then the bf16 arm from one f32 init, seed
+    ``CONV_SEED``, ``CONV_STEPS`` steps: both arms' initial states bit for
+    bit the init, TF32 off in the f32 arm, every loss finite, exact
+    launches (none for PSPNet50), every final val mIoU at least
+    ``CONV_MIN_MIOU``, |gap| under ``CONV_MAX_GAP`` points; (c) the launch
+    script ``semseg_torch/tool/train.sh`` on a PSANet50 config over phase
+    13's street images (:func:`start_launch_script`), which runs in its own
+    processes beside (b), after (a)'s timings. Returns the launches by
+    path, the kernels' hw 49 readings and the summary lines."""
+    from semseg_torch import convergence as conv
+
+    phase_t0 = time.perf_counter()
+    fwd = phase_psa_kernels(dev, CONV_EXTENTS, "25 convergence kernels")
+    bwd = phase_psa_backward(dev, CONV_EXTENTS, "25 convergence kernels")
+
+    launch = start_launch_script()
+    try:
+        by_path, summaries = convergence_arms(conv, dev, smi)
+        finish_launch_script(launch)
+    finally:
+        if launch.proc.poll() is None:  # (b) failed: stop the script's processes
+            os.killpg(launch.proc.pid, signal.SIGKILL)
+            launch.proc.wait()
+    log(f"[25 convergence] phase {time.perf_counter() - phase_t0:.1f} s on {smi}")
+    return by_path, fwd, bwd, summaries
+
+
+def convergence_arms(conv, dev, smi):
+    """Phase 25 (b): both archs' arms with their gates; the launches by
+    path and the summary lines."""
+    train_set = conv.make_dataset(0, conv.N_TRAIN)
+    val_set = conv.make_dataset(1, conv.N_VAL)
+    by_path, summaries = {}, []
+    for arch, steps in CONV_STEPS.items():
+        init = conv.initial_state(arch, CONV_SEED, dev)
+        for name in ("float32", "bfloat16"):
+            state = conv.build_arm(name, steps, arch=arch, seed=CONV_SEED, init_state=init,
+                                   device=dev).module.state_dict()
+            if list(state) != list(init) or not all(
+                    state[k].dtype == v.dtype and torch.equal(state[k], v)
+                    for k, v in init.items()):
+                raise AssertionError(f"convergence {arch} {name}: the arm's initial state is "
+                                     "not the float32 init bit for bit")
+        results = {}
+        for name in ("float32", "bfloat16"):
+            losses = []
+
+            def hook(step, metrics):
+                if step == 1 and name == "float32" and (torch.backends.cuda.matmul.allow_tf32
+                                                        or torch.backends.cudnn.allow_tf32):
+                    raise AssertionError("convergence: TF32 is on in the float32 arm")
+                losses.append(metrics["loss"].detach())
+
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            results[name] = conv.run(name, steps, train_set, val_set, arch=arch,
+                                     seed=CONV_SEED, init_state=init, device=dev,
+                                     step_hook=hook)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            evals = len(results[name])
+            check_counts(f"convergence {arch} {name}", counts,
+                         launches() if arch == "psp" else psa_arm_launches(name, steps, evals))
+            by_path[f"convergence_{arch}_{'f32' if name == 'float32' else 'bf16'}"] = counts
+            finite = torch.stack(losses).isfinite().all().item()
+            final = results[name][-1][1]
+            log(f"[25 convergence] {arch} {name}: {steps} steps and {evals} validations in "
+                f"{seconds:.1f} s ({steps / seconds:.2f} steps/s with validation; the launch "
+                f"script's processes share the card), final val mIoU {final:.4f}, last loss "
+                f"{losses[-1].item():.4f}, losses finite {finite}")
+            if not (len(losses) == steps and finite and final >= CONV_MIN_MIOU):
+                raise AssertionError(f"convergence {arch} {name}: {len(losses)} steps, losses "
+                                     f"finite {finite}, final val mIoU {final}")
+        line = conv.summary(arch, steps, CONV_SEED, results, smi)
+        summaries.append(line)
+        log(json.dumps(line))
+        log(f"[25 convergence] {arch}: gap {line['gap_points']} points, gated at "
+            f"|gap| < {CONV_MAX_GAP}; the JAX tool's criterion |gap| < 1: "
+            f"{'pass' if line['pass'] else 'FAIL'}")
+        if not abs(line["gap_points"]) < CONV_MAX_GAP:
+            raise AssertionError(f"convergence {arch}: gap {line['gap_points']} points")
+    return by_path, summaries
+
+
+def start_launch_script():
+    """Phase 25 (c): start ``sh semseg_torch/tool/train.sh smoke psanet50``
+    in a scratch directory (``build/chip_smoke/launch/``) holding
+    ``config/smoke/smoke_psanet50.yaml`` (phase 13's street images: bf16, 1
+    epoch of 2 steps at batch 8, the f32 test driver over 2 images) and the
+    package linked in, its output in ``launch.out`` there, in a session of
+    its own. PSANet50, since its training and its test driver launch the
+    PSA kernels, which must build under the snapshot's own ``build/``."""
+    import yaml
+
+    import semseg_torch
+
+    work = (OUT_DIR / "launch").resolve()
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "config" / "smoke").mkdir(parents=True)
+    (work / "semseg_torch").symlink_to(Path(semseg_torch.__file__).resolve().parent)
+    root = (Path("build") / "chip_smoke_data").resolve()
+    lines = (root / "train.txt").read_text().splitlines()
+    (work / "train16.txt").write_text("\n".join(lines[:16]) + "\n")
+    (work / "test2.txt").write_text("\n".join(lines[16:18]) + "\n")
+    exp = Path("exp") / "smoke" / "psanet50"
+    cfg = yaml.safe_load(Path("config/cityscapes/cityscapes_psanet50.yaml").read_text())
+    cfg["DATA"].update(data_root=str(root), train_list=str(work / "train16.txt"),
+                       val_list=str(work / "test2.txt"))
+    cfg["TRAIN"].update(train_gpu=[0], batch_size=8, epochs=1, print_freq=1, workers=8,
+                        manual_seed=0, compute_dtype="bfloat16", save_path=str(exp / "model"))
+    cfg["TEST"].update(test_list=str(work / "test2.txt"), test_gpu=[0],
+                       model_path=str(exp / "model" / "train_epoch_1.pth"),
+                       save_folder=str(exp / "result" / "epoch_1" / "val" / "ss"),
+                       colors_path=str(Path("data/cityscapes/cityscapes_colors.txt").resolve()),
+                       names_path=str(Path("data/cityscapes/cityscapes_names.txt").resolve()))
+    (work / "config" / "smoke" / "smoke_psanet50.yaml").write_text(yaml.safe_dump(cfg))
+    with open(work / "launch.out", "w") as out:
+        proc = subprocess.Popen(["sh", "semseg_torch/tool/train.sh", "smoke", "psanet50"],
+                                cwd=work, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return SimpleNamespace(proc=proc, work=work, exp=work / exp,
+                           classes=cfg["DATA"]["classes"], t0=time.perf_counter())
+
+
+def finish_launch_script(launch):
+    """Wait for the launch script (at most 600 s) and gate on it: exit 0,
+    the snapshot, both timestamped logs each ending in its driver's last
+    line (the checkpoint save, the last class's score), the checkpoint, the
+    test driver's PNGs and the kernels built under the snapshot's
+    ``build/``. The drivers' launch counts live in their own processes."""
+    rc = launch.proc.wait(timeout=600)
+    seconds = time.perf_counter() - launch.t0
+    exp = launch.exp
+    if rc != 0:
+        raise AssertionError(f"train.sh: exit {rc}:\n"
+                             f"{(launch.work / 'launch.out').read_text()[-3000:]}")
+    snap = sorted(p.relative_to(exp / "semseg_torch").as_posix()
+                  for p in (exp / "semseg_torch").rglob("*") if p.is_file())
+    logs = sorted((exp / "model").glob("train-*.log")) + sorted(
+        (exp / "result").glob("test-*.log"))
+
+    def last(path):
+        return path.read_text().rstrip().splitlines()[-1]
+
+    out = exp / "result" / "epoch_1" / "val" / "ss"
+    grays = sorted(p.name for p in (out / "gray").glob("*.png"))
+    colors = sorted(p.name for p in (out / "color").glob("*.png"))
+    built = sorted(p.name for p in (exp / "build" / "semseg_torch_kernels").glob("*.so"))
+    ok = ({"train.py", "test.py", "convergence.py", "csrc/psa.cu", "tool/train.sh",
+           "tool/test.sh", "tool/_snapshot.sh"} <= set(snap)
+          and not any("__pycache__" in s for s in snap)
+          and (exp / "smoke_psanet50.yaml").is_file()
+          and [p.name[:5] for p in logs] == ["train", "test-"]
+          and logs[0].name[6:] == logs[1].name[5:]
+          and "Saving checkpoint to" in last(logs[0])
+          and f"Class_{launch.classes - 1} result" in last(logs[1])
+          and (exp / "model" / "train_epoch_1.pth").is_file()
+          and grays == colors and len(grays) == 2 and built == ["libsemseg_psa.so"])
+    log(f"[25 launch script] train.sh exit {rc} in {seconds:.1f} s (beside (b)); snapshot "
+        f"of {len(snap)} files, logs {[p.name for p in logs]}, last lines "
+        f"{[last(p)[-60:] for p in logs]}; PNGs {grays}; kernels built in the snapshot "
+        f"{built}")
+    if not ok:
+        raise AssertionError(f"launch script: see the line above (work dir {launch.work})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2305,6 +2528,7 @@ def main():
     partition_paths = phase_partitions(dev, images, smi)
     tp_paths, _, _ = phase_tp(dev, Path("build") / "chip_smoke_data", smi,
                               timing["images_per_s"])
+    conv_paths, _, _, conv_lines = phase_convergence(dev, smi)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -2314,7 +2538,8 @@ def main():
         f"train {batch}: {timing['images_per_s']:.3f} images/s, {timing['peak_gib']:.2f} GiB; "
         f"f32 train 8: {f32_timing['images_per_s']:.3f} images/s, {f32_timing['peak_gib']:.2f} GiB; "
         f"multi-scale serving: PSPNet50 {ms_rates['PSPNet50']:.4f}, PSANet50 "
-        f"{ms_rates['PSANet50']:.4f} images/s"
+        f"{ms_rates['PSANet50']:.4f} images/s; convergence gaps (points, f32 - bf16) "
+        + ", ".join(f"{c['arch']} {c['gap_points']}" for c in conv_lines)
         + (f"; {'; '.join(notes)}" if notes else ""))
 
     by_path = {"pspnet_slice": psp_counts, "psanet_slice": psa_counts,
@@ -2323,7 +2548,7 @@ def main():
                "psanet_shrink1_train_step": shrink1_train_counts,
                "pspnet_multiscale": ms_counts["PSPNet50"],
                "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths,
-               **ddp_paths, **export_paths, **partition_paths, **tp_paths}
+               **ddp_paths, **export_paths, **partition_paths, **tp_paths, **conv_paths}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]

@@ -195,6 +195,7 @@ def test_psa_kernels_match_plain(cuda, n, c, hw, dtype):
 @pytest.mark.parametrize("n,c,hw", [
     (1, 130, 97),     # two channel tiles of 128, ragged stages
     (3, 16, 200),     # one M tile per warpgroup, four query tiles
+    (8, 512, 49),     # the convergence license's 97x97 crops: less than one tile
     (8, 256, 2025),   # a TP rank's channels (model_parallel 2): two M tiles
     (8, 512, 2025),   # Cityscapes PSANet, served (4 launches an image)
     (16, 512, 2025),  # Cityscapes PSANet, trained at batch 16
@@ -232,6 +233,7 @@ def test_wgmma_kernels_match_plain(cuda, n, c, hw):
 @pytest.mark.parametrize("n,c,hw", [
     (1, 130, 97),     # three channel stages, one ragged; one ragged tile
     (3, 16, 200),     # one stage, two tiles each way
+    (8, 512, 49),     # the convergence license's 97x97 crops: less than one tile
     (8, 256, 2025),   # a TP rank's channels (model_parallel 2)
     (8, 512, 2025),   # Cityscapes PSANet at batch 8
     (16, 512, 2025),  # Cityscapes PSANet, trained at batch 16
@@ -289,6 +291,7 @@ def test_wgmma_kernels_reject_what_they_do_not_take(cuda):
     (2, 24, 100),    # one M tile per warpgroup (128 channels a block)
     (1, 130, 97),    # 256 channels a block, ragged stages
     (8, 512, 900),   # ADE20K PSANet: 512 channels a block
+    (8, 512, 49),    # the convergence license's 97x97 crops: less than one tile
     (8, 256, 2025),  # a TP rank's channels (model_parallel 2)
     (8, 512, 2025),  # Cityscapes PSANet (an f32 train step at batch 8)
 ])
@@ -409,6 +412,7 @@ def _da_f32_bars(x, a, g, m, l, out, norm):
     (2, 16, 70),      # one channel stage, one ragged tile
     (1, 130, 97),     # five stages, the last ragged
     (3, 16, 200),     # two tiles each way
+    (8, 512, 49),     # the convergence license's 97x97 crops: less than one tile
     (8, 256, 2025),   # a TP rank's channels (model_parallel 2)
     (8, 512, 2025),   # Cityscapes PSANet (an f32 train step at batch 8)
 ])
