@@ -13,8 +13,9 @@ snapshot, resume, the test driver and the demo (phase 20); two DDP ranks
 sharing the card (phase 21); the serving export of both models (phase
 22); and the evaluator's window and spatial partitions over two entries of
 the card and its host pipeline (phase 23); tensor-parallel ranks (phase
-24); and the bf16-vs-f32 convergence license and the launch scripts
-(phase 25). The CUDA
+24); the bf16-vs-f32 convergence license and the launch scripts (phase
+25); and the 101-layer Cityscapes recipes with and without ``remat``
+(phase 26). The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
 each (12 runs after 4):
 
@@ -179,7 +180,25 @@ each (12 runs after 4):
    ``semseg_torch/tool/train.sh`` on a PSANet50 config in
    ``build/chip_smoke/launch/``: exit 0, the snapshot, the timestamped
    train and test logs, the checkpoint, the PNGs, and the kernels built
-   under the snapshot's own ``build/``.
+   under the snapshot's own ``build/``;
+26. the 101-layer Cityscapes recipes and ``remat`` (each residual block of
+   layer1..layer4 recomputed in the backward pass): PSANet101 f32 at
+   705x705, batch 8, 2 steps from the same weights and batch with and
+   without ``remat`` (``cudnn.deterministic`` on): losses, parameters,
+   momentum buffers and running statistics bit for bit,
+   ``num_batches_tracked`` 2 in both, the 3xTF32 forward, da and dx twice a
+   step; seconds a step and peak memory each; PSANet101 f32 at the
+   recipe's batch 16 with ``remat``: seconds a step, images/s, peak
+   memory; the bf16 PSANet101 recipe (batch 16) through
+   ``semseg_torch.train.run`` with ``remat True`` as a CLI override and
+   without: 2 steps on phase 13's street images, the tensor-core forward,
+   da and dx twice a step, peak memory, the step on a device-resident
+   batch; PSPNet101 (713) and PSANet101 (705) serving, bf16, single scale,
+   flip, ``window_batch`` 8, 4 timed 1024x2048 requests each, the
+   BatchNorm statistics taken from train-mode windows as training leaves
+   them (with the init's, eval BatchNorm grows the logits to about 1e4):
+   the stitch twice and PSANet101's bf16 forward 4 times a request,
+   images/s, fused against plain at the bars of phases 6 and 9.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -434,6 +453,15 @@ def street_image(seed, h=1024, w=2048):
     return street_sample(seed, h, w)[0]
 
 
+def street_batch(dev, batch, crop, seed0):
+    """``batch`` seeded street samples' top-left ``crop`` x ``crop`` pixels
+    and labels, uint8 on the device (the Trainer normalises)."""
+    pairs = [street_sample(seed0 + s) for s in range(batch)]
+    images = torch.from_numpy(np.stack([p[0][:crop, :crop] for p in pairs])).to(dev)
+    labels = torch.from_numpy(np.stack([p[1][:crop, :crop] for p in pairs])).to(dev)
+    return images, labels
+
+
 def phase_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -605,13 +633,17 @@ def psanet_cfg(**kw):
         "normalization_factor": 1.0, "psa_softmax": 1, **kw})
 
 
-def phase_slice(tag, label, cfg, dev, images, per_image):
+def phase_slice(tag, label, cfg, dev, images, per_image, prepare=None):
+    """``build_evaluator`` (bf16, seed 0), ``prepare(model)`` if given, 2
+    warm-up requests, then ``images`` timed, each launching ``per_image``."""
     from semseg_torch.serve import build_evaluator
     from semseg_torch.utils.misc import get_logger
 
     ev = build_evaluator(cfg, get_logger(), dtype=torch.bfloat16, device=dev, seed=0)
     if not ev.fused_stitch:
         raise AssertionError("the bf16 CUDA evaluator did not pick the fused kernel")
+    if prepare is not None:
+        prepare(ev.model)
     for img in images[:2]:  # warm-up (cuDNN heuristics, allocator)
         ev.predict(img)
     torch.cuda.synchronize()
@@ -656,11 +688,11 @@ def agreement(tag, label, pf, pp):
         f"(where a flip is allowed): {near_tie:.4f}")
 
 
-def phase_stitch_vs_plain(dev, ev, image):
+def phase_stitch_vs_plain(dev, ev, image, cfg=None, tag=6, label="PSPNet"):
     from semseg_torch.engine.evaluator import SlidingWindowEvaluator
     from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
 
-    cfg = pspnet_cfg()
+    cfg = cfg or pspnet_cfg()
     plain = SlidingWindowEvaluator(
         ev.model, classes=cfg.classes, crop_h=cfg.test_h, crop_w=cfg.test_w,
         mean=IMAGENET_MEAN, std=IMAGENET_STD, base_size=cfg.base_size,
@@ -670,10 +702,10 @@ def phase_stitch_vs_plain(dev, ev, image):
     pp = plain.predict_probs(image)
     if (ev.predict(image) != pf.argmax(-1)).any():
         raise AssertionError("predict and predict_probs disagree")
-    agreement(6, "PSPNet fused vs plain stitch", pf, pp)
+    agreement(tag, f"{label} fused vs plain stitch", pf, pp)
 
 
-def phase_psa_vs_plain(ev, image):
+def phase_psa_vs_plain(ev, image, tag=9, label="PSANet"):
     """The same weights and the fused stitch on both sides; only the
     attention differs (kernel vs plain softmax + bmm)."""
     pf = ev.predict_probs(image)
@@ -686,7 +718,7 @@ def phase_psa_vs_plain(ev, image):
     finally:
         ev.model.psa.fused_attention = None
     check_counts("plain attention", counts, launches(upsample_softmax_flip=2))
-    agreement(9, "PSANet kernel vs plain attention", pf, pp)
+    agreement(tag, f"{label} kernel vs plain attention", pf, pp)
 
 
 def normalized_window(image, crop, dev):
@@ -1105,9 +1137,7 @@ def phase_pspnet_train(dev):
     tr = Trainer(model, make_sgd(model, 0.01), classes=19, ignore_label=255, aux_weight=0.4,
                  base_lr=0.01, max_iter=3, power=0.9, zoom_factor=8,
                  normalize=(IMAGENET_MEAN, IMAGENET_STD))
-    pairs = [street_sample(s) for s in range(8)]
-    images = torch.from_numpy(np.stack([p[0][:713, :713] for p in pairs])).to(dev)
-    labels = torch.from_numpy(np.stack([p[1][:713, :713] for p in pairs])).to(dev)
+    images, labels = street_batch(dev, 8, 713, 0)
     reset_counts()
     t0 = time.perf_counter()
     losses = [tr.step(images, labels)["loss"] for _ in range(3)]
@@ -1218,9 +1248,7 @@ def phase_f32_train_timing(dev, batch=8, per_step=F32_TRAIN_STEP,
     tr = Trainer(model, make_sgd(model, 0.01), classes=19, ignore_label=255, aux_weight=0.4,
                  base_lr=0.01, max_iter=100, power=0.9, zoom_factor=8,
                  normalize=(IMAGENET_MEAN, IMAGENET_STD))
-    pairs = [street_sample(20 + s) for s in range(batch)]
-    images = torch.from_numpy(np.stack([p[0][:705, :705] for p in pairs])).to(dev)
-    labels = torch.from_numpy(np.stack([p[1][:705, :705] for p in pairs])).to(dev)
+    images, labels = street_batch(dev, batch, 705, 20)
     for _ in range(2):
         tr.step(images, labels)
     torch.cuda.synchronize()
@@ -2482,7 +2510,337 @@ def finish_launch_script(launch):
         raise AssertionError(f"launch script: see the line above (work dir {launch.work})")
 
 
+# Phase 26: the 101-layer Cityscapes recipes (``config/cityscapes/
+# cityscapes_{psp,psa}net101.yaml``: layer3 holds 23 blocks at 89x89) and
+# ``remat``, which recomputes each residual block of layer1..layer4 in the
+# backward pass (``models/resnet.py``). The f32 arms run with
+# ``cudnn.deterministic`` on (as ``convergence.run``): cuDNN's default f32
+# algorithms are not reproducible on the card, and the arms are compared
+# bit for bit.
+R101_BATCH, R101_STEPS, R101_BIG_BATCH, R101_CROP = 8, 2, 16, 705
+R101_SERVE = 4  # timed requests a model, after 2 warm-up ones
+
+
+def psanet101_cfg(**kw):
+    """``config/cityscapes/cityscapes_psanet101.yaml``'s model and TEST keys."""
+    return psanet_cfg(layers=101, **kw)
+
+
+def pspnet101_cfg(**kw):
+    return SimpleNamespace(**{**vars(pspnet_cfg()), "layers": 101, **kw})
+
+
+def f32_arm(dev, cfg, images, labels, steps, per_step):
+    """A float32 model of ``cfg`` (seed 0, ``cfg.remat``) through the
+    Trainer for ``steps`` steps on one device-resident batch, each
+    launching ``per_step``; the losses, the seconds of each step, their
+    mean after the first, the peak memory, the final state, the momentum
+    buffers and the launches. ``chip_probes/remat_memory.py`` runs it too."""
+    from semseg_torch.engine.optim import make_sgd
+    from semseg_torch.engine.trainer import Trainer
+    from semseg_torch.models.build import build_model
+    from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
+
+    remat = bool(getattr(cfg, "remat", False))
+    label = f"{cfg.arch.upper()}Net{cfg.layers} f32 remat {remat}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dtype=torch.float32, device=dev, seed=0, train=True)
+    if model.remat is not remat or (torch.backends.cudnn.allow_tf32
+                                    or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError(f"{label}: the model's remat {model.remat}, or TF32 on")
+    tr = Trainer(model, make_sgd(model, 0.01), classes=19, ignore_label=255, aux_weight=0.4,
+                 base_lr=0.01, max_iter=100, power=0.9, zoom_factor=8,
+                 normalize=(IMAGENET_MEAN, IMAGENET_STD))
+    losses, seconds, by_path = [], [], launches()
+    for i in range(steps):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.step(images, labels)["loss"])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counts = read_counts()
+        check_counts(f"{label} step {i}", counts, launches(**per_step))
+        by_path = {k: by_path[k] + v for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # On the host: the next arm's peak holds none of this arm's tensors.
+    out = dict(losses=torch.stack(losses).cpu(), seconds=seconds,
+               step_s=sum(seconds[1:]) / len(seconds[1:]), peak_gib=peak,
+               state={k: v.cpu() for k, v in model.state_dict().items()}, counts=by_path,
+               momentum=[s["momentum_buffer"].cpu()
+                         for s in tr.optimizer.state_dict()["state"].values()])
+    if not torch.isfinite(out["losses"]).all():
+        raise AssertionError(f"{label}: losses {out['losses'].tolist()}")
+    del tr, model
+    return out
+
+
+def r101_train_cfg(root, remat):
+    """``config/cityscapes/cityscapes_psanet101.yaml`` through the training
+    entry point's parser, bf16, batch 16, one epoch of the first 32 street
+    images of phase 13 (2 steps), ``remat`` as a CLI override."""
+    from semseg_torch.train import parse_args
+
+    root = Path(root)
+    lines = (root / "train.txt").read_text().splitlines()[:2 * R101_BIG_BATCH]
+    (root / "train32.txt").write_text("\n".join(lines) + "\n")
+    return parse_args([
+        "--config", "config/cityscapes/cityscapes_psanet101.yaml",
+        "data_root", str(root), "train_list", str(root / "train32.txt"),
+        "save_path", str(OUT_DIR / "r101" / f"remat_{remat}"), "train_gpu", "[0]",
+        "batch_size", str(R101_BIG_BATCH), "epochs", "1", "print_freq", "1",
+        "compute_dtype", "bfloat16", "remat", str(remat)])
+
+
+def r101_driver(dev, root, remat):
+    """Phase 26 (c): ``semseg_torch.train.run`` of the PSANet101 recipe,
+    bf16, batch 16, 2 steps, each launching the tensor-core forward, da and
+    dx twice; then the Trainer's step on a device-resident batch of the
+    run's loader, 1 warm-up and 2 timed. Returns the launches, the run's
+    peak memory, the seconds a step and the losses."""
+    from semseg_torch.train import build_train_loader, run
+    from semseg_torch.utils.misc import get_logger
+
+    cfg = r101_train_cfg(root, remat)
+    by_path, losses = launches(), []
+
+    def hook(it, metrics):
+        counts = read_counts()
+        check_counts(f"PSANet101 bf16 driver remat {remat} step {it}", counts,
+                     launches(**TRAIN_STEP))
+        by_path.update({k: by_path[k] + v for k, v in counts.items()})
+        losses.append(metrics["loss"].item())
+        reset_counts()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run(cfg, dev, logger=get_logger(), step_hook=hook)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr = res["trainer"]
+    if not (len(losses) == 2 and all(np.isfinite(losses)) and tr.module.remat is remat
+            and res["checkpoints"]):
+        raise AssertionError(f"PSANet101 bf16 driver remat {remat}: losses {losses}, "
+                             f"remat {tr.module.remat}, checkpoints {res['checkpoints']}")
+    loader, _ = build_train_loader(cfg)
+    loader.set_epoch(0)
+    first = next(iter(loader))
+    images = torch.from_numpy(first[0]).to(dev)
+    labels = torch.from_numpy(first[1].astype(np.uint8)).to(dev)
+    del first, loader
+    tr.max_iter = tr.step_count + 100
+    tr.step(images, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2):
+        reset_counts()
+        tr.step(images, labels)
+        check_counts(f"PSANet101 bf16 timed step {i} remat {remat}", read_counts(),
+                     launches(**TRAIN_STEP))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 2
+    del tr, res, images, labels
+    shutil.rmtree(cfg.save_path, ignore_errors=True)  # the epoch checkpoint, 0.9 GB
+    return dict(counts=by_path, peak_gib=peak, step_s=step_s, losses=losses, run_s=run_s)
+
+
+def stitch_witness(label, model, image, crop, dev, when, bar=None):
+    """The stitch kernel on a served bf16 model's own logits, held to the
+    same function in float64: 4 windows across the top of ``image`` and
+    their flips, feature-resolution logits rounded to bf16 as the evaluator
+    hands them over, then the zoom upsample (the kernel's bf16-rounded
+    weights), softmax and flip average with no rounding after the logits.
+    Beside it, at the same distance: the kernel's plain version (its
+    rounding points: the H pass rounded to bf16, bf16 halves) and the
+    unfused path (the model's own bf16 zoom, float32 softmax, bf16
+    probabilities). With ``bar``, the kernel against its plain version on
+    these logits within it (phase 3 holds them so on random logits);
+    the distances to float64 are printed, not gated."""
+    from semseg_torch.ops.resize import interp_matrix
+    from semseg_torch.ops.stitch import (
+        upsample_softmax_flip,
+        upsample_softmax_flip_reference,
+    )
+
+    offsets = np.linspace(0, image.shape[1] - crop, 4).astype(int)
+    x = torch.cat([normalized_window(image[:, o:], crop, dev) for o in offsets])
+    x = torch.cat([x, x.flip(-1)])
+    n = len(offsets)
+    with torch.no_grad():
+        logits = model(x, zoom=False)
+        pairs = torch.stack([logits[:n], logits[n:]], 1).to(torch.bfloat16).contiguous()
+        fused = upsample_softmax_flip(pairs, (crop, crop)).double()
+        rounded = upsample_softmax_flip_reference(pairs, (crop, crop)).double()
+        probs = torch.softmax(model(x).float(), dim=1).to(torch.bfloat16).double()
+        unfused = (probs[:n] + probs[n:].flip(-1)) / 2
+        del probs
+        hs, ws = pairs.shape[-2:]
+        rh = interp_matrix(hs, crop, False, dev).to(torch.bfloat16).double()
+        rw = interp_matrix(ws, crop, False, dev).to(torch.bfloat16).double()
+        p = torch.softmax(rh @ pairs.double() @ rw.T, dim=2)
+        exact = (p[:, 0] + p[:, 1].flip(-1)) / 2
+        del p
+    torch.cuda.synchronize()
+    out = dict(max_logit=pairs.float().abs().max().item(),
+               fused=(fused - exact).abs().max().item(),
+               fused_vs_plain_kernel=(fused - rounded).abs().max().item(),
+               plain_kernel=(rounded - exact).abs().max().item(),
+               unfused=(unfused - exact).abs().max().item(),
+               fused_vs_unfused=(fused - unfused).abs().max().item(),
+               agreement=(fused.argmax(1) == exact.argmax(1)).double().mean().item())
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"{label} stitch witness: {out}")
+    log(f"[26 witness] {label}, {when}: max |logit| {out['max_logit']:.4g}; max abs "
+        f"distance to the float64 upsample-softmax-flip of the same bf16 logits: kernel "
+        f"{out['fused']:.3e}, its plain version {out['plain_kernel']:.3e}, the unfused path "
+        f"{out['unfused']:.3e}; kernel vs its plain version "
+        f"{out['fused_vs_plain_kernel']:.3e}, vs unfused {out['fused_vs_unfused']:.3e}; the "
+        f"kernel's argmax agreement with float64 {out['agreement']:.6f}")
+    del fused, rounded, unfused, exact
+    if bar is not None and not out["fused_vs_plain_kernel"] <= bar:
+        raise AssertionError(f"{label}: the stitch kernel against its plain version "
+                             f"{out['fused_vs_plain_kernel']} > {bar} on the served logits")
+    return out
+
+
+def trained_statistics(label, crop, dev, images):
+    """A ``prepare`` of :func:`phase_slice`: the served model's BatchNorm
+    running statistics as training leaves them, the moments of its own
+    activations (one train-mode forward, no grad, over a top-left window
+    of each image, cumulative average), in place of the seeded init's mean
+    0 and variance 1. With those, eval BatchNorm does not normalise: 101
+    layers of residual sums grow the logits to about 1e4 (PSPNet50's stay
+    near 10), where bf16's rounding of an interpolated logit (2^-8 of it)
+    exceeds the top-2 margin of many pixels, and fused against plain then
+    reads that rounding, not the kernel: :func:`stitch_witness` shows it,
+    before and after. The weights stay the seeded init's; each BatchNorm
+    gets its momentum back."""
+    from semseg_torch.models.layers import BatchNorm2d
+
+    def prepare(model):
+        stitch_witness(label, model, images[0], crop, dev, "the init's BatchNorm statistics")
+        x = torch.cat([normalized_window(img, crop, dev) for img in images])
+        with torch.no_grad():
+            bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+            momenta = [m.momentum for m in bns]
+            for m in bns:
+                m.reset_running_stats()
+                m.momentum = None  # the cumulative average
+            model.train()
+            model(x)
+            model.eval()
+            for m, momentum in zip(bns, momenta):
+                m.momentum = momentum
+        log(f"[26 slice] {label}: BatchNorm statistics from {len(images)} train-mode windows")
+        stitch_witness(label, model, images[0], crop, dev, "statistics from train-mode windows",
+                       bar=TOL)
+
+    return prepare
+
+
+def phase_r101(dev, root, images, smi):
+    """The 101-layer recipes and ``remat`` (phase 26): (a) PSANet101 f32 at
+    705x705, batch 8, ``R101_STEPS`` steps from the same weights and batch
+    with and without ``remat``, ``cudnn.deterministic`` on: losses,
+    parameters, momentum buffers and running statistics bit for bit,
+    ``num_batches_tracked`` the step count in both, the 3xTF32 kernels'
+    launches exact; seconds a step (the last) and peak memory each; (b) the
+    same with ``remat`` at batch 16, cuDNN's defaults, 1 warm-up and 2
+    timed steps: seconds a step, images/s, peak memory; (c) the bf16
+    PSANet101 recipe through ``semseg_torch.train.run`` with ``remat True``
+    as a CLI override, and without (:func:`r101_driver`); (d) PSPNet101
+    (713) and PSANet101 (705) serving, bf16, single scale, flip,
+    ``window_batch`` 8, on 1024x2048 images, the BatchNorm statistics as
+    training leaves them (:func:`trained_statistics`): exact launches (the
+    stitch twice an image, PSANet101's bf16 forward 4 times), images/s,
+    fused against plain at phases 6 and 9's bars. Returns the launches by
+    path and the readings."""
+    phase_t0 = time.perf_counter()
+    by_path, out = {}, {}
+    batch8 = street_batch(dev, R101_BATCH, R101_CROP, 300)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        arms = {remat: f32_arm(dev, psanet101_cfg(remat=remat), *batch8, R101_STEPS,
+                               F32_TRAIN_STEP) for remat in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    off, on = arms[False], arms[True]
+    state_diff = [k for k, v in off["state"].items() if not torch.equal(on["state"][k], v)]
+    mom_diff = [i for i, (a, b) in enumerate(zip(on["momentum"], off["momentum"]))
+                if not torch.equal(a, b)]
+    tracked = {int(v) for arm in arms.values() for k, v in arm["state"].items()
+               if k.endswith("num_batches_tracked")}
+    for remat, arm in arms.items():
+        by_path[f"psanet101_f32_steps{'_remat' if remat else ''}"] = arm["counts"]
+        log(f"[26 r101] PSANet101 f32 {R101_CROP}x{R101_CROP} batch {R101_BATCH}, remat {remat}, "
+            f"cudnn.deterministic: steps {[round(s, 4) for s in arm['seconds']]} s, "
+            f"{arm['step_s']:.4f} s/step = {R101_BATCH / arm['step_s']:.3f} images/s (last "
+            f"step), peak {arm['peak_gib']:.2f} GiB, losses "
+            f"{[round(v, 6) for v in arm['losses'].tolist()]}; on {smi}")
+    ratio = on["step_s"] / off["step_s"]
+    log(f"[26 r101] remat against none at batch {R101_BATCH}: step time x{ratio:.3f}, peak "
+        f"{on['peak_gib']:.2f} / {off['peak_gib']:.2f} GiB; state entries unequal "
+        f"{len(state_diff)} of {len(off['state'])} {state_diff[:4]}, momentum buffers unequal "
+        f"{len(mom_diff)} of {len(off['momentum'])}, losses equal "
+        f"{torch.equal(on['losses'], off['losses'])}, num_batches_tracked {sorted(tracked)}")
+    if state_diff or mom_diff or not torch.equal(on["losses"], off["losses"]) or (
+            tracked != {R101_STEPS}):
+        raise AssertionError("PSANet101 f32: remat is not the step without it bit for bit "
+                             "(see the line above)")
+    out["f32_b8"] = {remat: dict(step_s=a["step_s"], peak_gib=a["peak_gib"])
+                     for remat, a in arms.items()}
+    del arms, off, on, batch8
+    torch.cuda.empty_cache()
+
+    batch16 = street_batch(dev, R101_BIG_BATCH, R101_CROP, 400)
+    big = f32_arm(dev, psanet101_cfg(remat=True), *batch16, 3, F32_TRAIN_STEP)
+    by_path["psanet101_f32_b16_remat"] = big["counts"]
+    log(f"[26 r101] PSANet101 f32 {R101_CROP}x{R101_CROP} batch {R101_BIG_BATCH} (the recipe's), remat, "
+        f"cuDNN defaults: steps {[round(s, 4) for s in big['seconds']]} s, {big['step_s']:.4f} "
+        f"s/step = {R101_BIG_BATCH / big['step_s']:.3f} images/s over steps 2-3, peak "
+        f"{big['peak_gib']:.2f} GiB; on {smi}")
+    out["f32_b16_remat"] = dict(step_s=big["step_s"], peak_gib=big["peak_gib"])
+    del big, batch16
+    torch.cuda.empty_cache()
+
+    for remat in (True, False):
+        res = r101_driver(dev, root, remat)
+        out[f"bf16_b16_remat_{remat}"] = {k: res[k] for k in ("peak_gib", "step_s")}
+        by_path[f"psanet101_driver{'_remat' if remat else ''}"] = res["counts"]
+        log(f"[26 r101] bf16 PSANet101 recipe through run(), remat {remat}, batch "
+            f"{R101_BIG_BATCH}: 2 steps in {res['run_s']:.2f} s (build and loader included), "
+            f"losses {[round(v, 4) for v in res['losses']]}, peak {res['peak_gib']:.2f} GiB; "
+            f"device-resident step {res['step_s']:.4f} s = "
+            f"{R101_BIG_BATCH / res['step_s']:.3f} images/s; launches {res['counts']}; on {smi}")
+    torch.cuda.empty_cache()
+
+    for label, cfg, per_image in (
+            ("PSPNet101", pspnet101_cfg(), launches(upsample_softmax_flip=2)),
+            ("PSANet101", psanet101_cfg(),
+             launches(upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4))):
+        ev, counts, rate = phase_slice(
+            26, label, cfg, dev, images[:R101_SERVE], per_image,
+            trained_statistics(label, cfg.test_h, dev, images[:R101_SERVE]))
+        by_path[f"{label.lower()}_slice"] = counts
+        out[f"{label}_images_per_s"] = rate
+        if cfg.arch == "psp":
+            phase_stitch_vs_plain(dev, ev, images[0], cfg, 26, label)
+        else:
+            phase_psa_vs_plain(ev, images[0], 26, label)
+        del ev
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - phase_t0
+    log(f"[26 r101] phase {out['seconds']:.1f} s on {smi}")
+    return by_path, out
+
+
 def main():
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -2529,6 +2887,7 @@ def main():
     tp_paths, _, _ = phase_tp(dev, Path("build") / "chip_smoke_data", smi,
                               timing["images_per_s"])
     conv_paths, _, _, conv_lines = phase_convergence(dev, smi)
+    r101_paths, r101 = phase_r101(dev, Path("build") / "chip_smoke_data", images, smi)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -2540,6 +2899,13 @@ def main():
         f"multi-scale serving: PSPNet50 {ms_rates['PSPNet50']:.4f}, PSANet50 "
         f"{ms_rates['PSANet50']:.4f} images/s; convergence gaps (points, f32 - bf16) "
         + ", ".join(f"{c['arch']} {c['gap_points']}" for c in conv_lines)
+        + f"; PSANet101 f32 batch 8 s/step remat / none "
+        f"{r101['f32_b8'][True]['step_s']:.4f} / {r101['f32_b8'][False]['step_s']:.4f}, peak "
+        f"{r101['f32_b8'][True]['peak_gib']:.2f} / {r101['f32_b8'][False]['peak_gib']:.2f} GiB; "
+        f"batch 16 remat {r101['f32_b16_remat']['peak_gib']:.2f} GiB; serving PSPNet101 "
+        f"{r101['PSPNet101_images_per_s']:.4f}, PSANet101 {r101['PSANet101_images_per_s']:.4f} "
+        f"images/s; phase 26 {r101['seconds']:.1f} s; the script "
+        f"{time.perf_counter() - script_t0:.1f} s; on {smi}"
         + (f"; {'; '.join(notes)}" if notes else ""))
 
     by_path = {"pspnet_slice": psp_counts, "psanet_slice": psa_counts,
@@ -2548,7 +2914,8 @@ def main():
                "psanet_shrink1_train_step": shrink1_train_counts,
                "pspnet_multiscale": ms_counts["PSPNet50"],
                "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths,
-               **ddp_paths, **export_paths, **partition_paths, **tp_paths, **conv_paths}
+               **ddp_paths, **export_paths, **partition_paths, **tp_paths, **conv_paths,
+               **r101_paths}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]

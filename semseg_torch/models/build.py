@@ -71,7 +71,9 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
     device, raising without one; the CPU only as ``device="cpu"``), with
     seeded random weights (load a checkpoint over them to serve real ones), in eval mode,
     or in train mode with ``train``. float32 models run with TF32 off, or
-    on for ``matmul_precision: high`` (``layers.set_precision``).
+    on for ``matmul_precision: high`` (``layers.set_precision``). ``remat``
+    (default off) recomputes the backbone's residual blocks in the backward
+    pass (``models/resnet.py``).
 
     Train-mode BatchNorm follows ``sync_bn`` (default True) as JAX's
     ``build_model(..., data_shards=replicas)`` does (``build.py:54-73``):
@@ -89,9 +91,10 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
     validate_arch(cfg)
     device = resolve_device(device)
     set_precision(dtype, getattr(cfg, "matmul_precision", None))
+    remat = bool(getattr(cfg, "remat", None) or False)  # JAX build.py:80,106
     if cfg.arch == "psp":
         model = PSPNet(layers=cfg.layers, classes=cfg.classes,
-                       zoom_factor=cfg.zoom_factor, dtype=dtype)
+                       zoom_factor=cfg.zoom_factor, dtype=dtype, remat=remat)
     else:
         mask_h, mask_w = derive_psa_mask_dims(cfg)
         # An empty normalization_factor defaults to mask_h*mask_w
@@ -105,7 +108,8 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
             shrink_factor=cfg.shrink_factor, mask_h=mask_h, mask_w=mask_w,
             normalization_factor=norm, psa_softmax=bool(cfg.psa_softmax),
             # None = auto (the CUDA kernels on CUDA); True/False force.
-            fused_attention=getattr(cfg, "fused_attention", None), dtype=dtype)
+            fused_attention=getattr(cfg, "fused_attention", None), dtype=dtype,
+            remat=remat)
     model.init_weights(torch.Generator().manual_seed(seed))
     if tp_group is not None:
         import torch.distributed as dist

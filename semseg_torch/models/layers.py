@@ -10,7 +10,9 @@ while BatchNorm statistics math stays float32.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.distributed as dist
@@ -44,6 +46,30 @@ class Conv2d(nn.Conv2d):
                         self.groups)
 
 
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context in which a checkpointed block is recomputed in the
+    backward pass (``models/resnet.py``, ``remat``): train-mode
+    :class:`BatchNorm2d` takes the batch moments of its input as in the
+    forward pass and leaves ``running_mean``, ``running_var`` and
+    ``num_batches_tracked`` as they are, so the statistics move once a
+    step, as under JAX's ``nn.remat``. Thread-local: the recompute runs on
+    the thread that runs the backward."""
+    before = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = before
+
+
+def _recomputing() -> bool:
+    return getattr(_recompute, "on", False)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose eval path is the JAX package's
     (``layers.py:142-145``): ``(x - mean) * rsqrt(var + eps) * weight +
@@ -62,7 +88,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     - a ``process_group``: moments over the batch of every rank of the
       group, all-reduced as one float32 tensor (:class:`_SyncBatchNorm`);
       the running variance's unbiased count is the global one (JAX
-      ``layers.py:151-166`` under ``axis_name``)."""
+      ``layers.py:151-166`` under ``axis_name``).
+
+    Under :func:`recomputing` each form computes what it computed in the
+    forward pass and tracks nothing."""
 
     groups = 1
     process_group = None
@@ -73,6 +102,12 @@ class BatchNorm2d(nn.BatchNorm2d):
                 return self._synced(x)
             if self.groups > 1:
                 return self._grouped(x)
+            if _recomputing():
+                # The same call on copies of the statistics: the same
+                # kernel, so the same moments, bit for bit.
+                return F.batch_norm(x.float(), self.running_mean.clone(),
+                                    self.running_var.clone(), self.weight, self.bias, True,
+                                    self.momentum, self.eps).to(x.dtype)
             return super().forward(x.float()).to(x.dtype)
         shape = (1, -1, 1, 1)
         y = (x.float() - self.running_mean.view(shape)) * torch.rsqrt(
@@ -83,7 +118,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     @torch.no_grad()
     def _track(self, mean, var, count):
         """Running statistics: momentum EMA of the mean and of the unbiased
-        variance over ``count`` samples."""
+        variance over ``count`` samples; none while recomputing."""
+        if _recomputing():
+            return
         m = self.momentum
         self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
         self.running_var.mul_(1.0 - m).add_(var * (count / max(count - 1, 1)), alpha=m)
@@ -103,6 +140,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.reshape(x.shape).to(x.dtype)
 
     def _synced(self, x):
+        # Recomputed, a block all-reduces [sum x, sum x^2, n] again in the
+        # backward pass. Every rank recomputes the same blocks in the same
+        # order, so these collectives pair up as the forward's do.
         y, mean, var = _SyncBatchNorm.apply(x.float(), self.weight, self.bias, self.eps,
                                             self.process_group)
         # Every rank holds an equal batch: the global count (JAX

@@ -16,6 +16,9 @@ channels-first. The PSA module, per direction:
 
 ``forward(x, zoom=False)`` returns the logits at feature resolution from
 the same weights; the fused stitch kernel does the zoom upsample itself.
+``remat`` goes to the backbone (``models/resnet.py``): the PSA module
+(its kernels launch once a direction and step) and the heads' dropout are
+not checkpointed.
 
 Under tensor parallelism (``parallel/tensor.py``; ``tp`` set by
 ``build_model``) a direction runs its aggregation on the rank's channel
@@ -166,7 +169,7 @@ class PSANet(ResNet):
                  shrink_factor: int = 2, mask_h: int = 59, mask_w: int = 59,
                  normalization_factor: float = 1.0, psa_softmax: bool = True,
                  fused_attention: Optional[bool] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         if layers not in (50, 101, 152):
             raise ValueError(f"layers={layers} not in (50, 101, 152)")
         if classes <= 1:
@@ -174,7 +177,7 @@ class PSANet(ResNet):
         if zoom_factor not in (1, 2, 4, 8):
             raise ValueError(f"zoom_factor={zoom_factor} not in (1,2,4,8)")
         super().__init__(depth=layers, stage_strides=SEG_STRIDES,
-                         stage_dilations=SEG_DILATIONS, dtype=dtype)
+                         stage_dilations=SEG_DILATIONS, dtype=dtype, remat=remat)
         self.classes = classes
         self.zoom_factor = zoom_factor
         self.use_psa = use_psa

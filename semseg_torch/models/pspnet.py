@@ -11,6 +11,8 @@ Port of ``semseg_tpu/models/pspnet.py`` (reference ``model/pspnet.py``):
 
 ``forward(x, zoom=False)`` returns the logits at feature resolution from
 the same weights; the fused stitch kernel does the zoom upsample itself.
+``remat`` goes to the backbone (``models/resnet.py``): the PPM and the
+heads are not checkpointed.
 
 Under tensor parallelism (``parallel/tensor.py``; ``tp`` set by
 ``build_model``) each PPM branch's conv and BN and the heads' 3x3 conv and
@@ -80,7 +82,7 @@ def seg_head(in_dim: int, mid: int, classes: int, dropout: float):
 class PSPNet(ResNet):
     def __init__(self, layers: int = 50, bins=(1, 2, 3, 6), dropout: float = 0.1,
                  classes: int = 2, zoom_factor: int = 8, use_ppm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         if layers not in (50, 101, 152):
             raise ValueError(f"layers={layers} not in (50, 101, 152)")
         if 2048 % len(bins) != 0:
@@ -90,7 +92,7 @@ class PSPNet(ResNet):
         if zoom_factor not in (1, 2, 4, 8):
             raise ValueError(f"zoom_factor={zoom_factor} not in (1,2,4,8)")
         super().__init__(depth=layers, stage_strides=SEG_STRIDES,
-                         stage_dilations=SEG_DILATIONS, dtype=dtype)
+                         stage_dilations=SEG_DILATIONS, dtype=dtype, remat=remat)
         self.classes = classes
         self.zoom_factor = zoom_factor
         self.use_ppm = use_ppm

@@ -8,7 +8,10 @@ Port of ``semseg_tpu/models/resnet.py``:
 - per-stage (stride, dilation); segmentation uses strides (1, 2, 1, 1)
   and dilations (1, 1, 2, 4), output stride 8 (reference
   ``model/pspnet.py:49-58``);
-- kaiming fan_out init for convs, BN weight 1 and bias 0.
+- kaiming fan_out init for convs, BN weight 1 and bias 0;
+- ``remat``: each residual block of layer1..layer4 is recomputed in the
+  backward pass (JAX ``nn.remat``, ``models/resnet.py:162-166``), trading
+  one more backbone forward for the blocks' saved activations.
 
 Submodules carry the reference state_dict names: ``layer0.{0,1,3,4,6,7}``
 for the stem, ``layer{s}.{b}.conv{i}/bn{i}`` and ``downsample.{0,1}``;
@@ -17,17 +20,20 @@ for the stem, ``layer{s}.{b}.conv{i}/bn{i}`` and ``downsample.{0,1}``;
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from semseg_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
     ConvBN,
     kaiming_normal_fan_out_,
+    recomputing,
     torch_default_conv_init_,
 )
 from semseg_torch.ops.pool import max_pool2d
@@ -109,15 +115,24 @@ class ResNet(nn.Module):
     ``dtype`` is the compute dtype: the input is cast to it, parameters
     stay float32. Classification default: strides (1, 2, 2, 2), dilations
     (1, 1, 1, 1); segmentation passes ``SEG_STRIDES``/``SEG_DILATIONS``.
+
+    With ``remat``, a train-mode forward under grad runs each residual
+    block of layer1..layer4 through a non-reentrant checkpoint: only the
+    block's input is kept, and the block runs again in the backward pass
+    under ``layers.recomputing`` (BatchNorm takes the same moments and
+    tracks nothing), so the step is the one without ``remat``, bit for bit.
+    The stem, the max pool and everything after layer4 are not
+    checkpointed; eval, ``no_grad`` and ``inference_mode`` run as without.
     """
 
     def __init__(self, depth: int = 50, deep_base: bool = True,
                  stage_strides: Tuple[int, ...] = (1, 2, 2, 2),
                  stage_dilations: Tuple[int, ...] = (1, 1, 1, 1),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         block, counts = _ARCH[depth]
         self.dtype = dtype
+        self.remat = remat
         if deep_base:
             self.layer0 = nn.Sequential(
                 *ConvBN(3, 64, 3, stride=2, padding=1),
@@ -145,14 +160,27 @@ class ResNet(nn.Module):
 
     def features(self, x):
         x = max_pool2d(self.layer0(x.to(self.dtype)), 3, 2, 1)
-        c1 = self.layer1(x)
-        c2 = self.layer2(c1)
-        c3 = self.layer3(c2)
-        c4 = self.layer4(c3)
-        return c1, c2, c3, c4
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        out = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            if remat:
+                for block in layer:
+                    # The blocks hold no randomness: no RNG state to keep.
+                    x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                                   context_fn=_remat_contexts)
+            else:
+                x = layer(x)
+            out.append(x)
+        return tuple(out)
 
     def forward(self, x):
         return self.features(x)
+
+
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: nothing around the forward, and
+    ``recomputing`` around the recompute."""
+    return contextlib.nullcontext(), recomputing()
 
 
 class ResNetClassifier(ResNet):
@@ -162,8 +190,8 @@ class ResNetClassifier(ResNet):
     num_classes]``."""
 
     def __init__(self, depth: int = 50, num_classes: int = 1000, deep_base: bool = True,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(depth=depth, deep_base=deep_base, dtype=dtype)
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__(depth=depth, deep_base=deep_base, dtype=dtype, remat=remat)
         self.fc = nn.Linear(512 * _ARCH[depth][0].expansion, num_classes)
 
     def init_weights(self, generator: torch.Generator):

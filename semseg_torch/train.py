@@ -390,6 +390,9 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
                 if world > 1 else "",
                 f", data x model = {data_world} x {ranks.model_parallel}"
                 if tp_group is not None else "")
+    if model.remat:
+        logger.info("=> remat: each residual block of layer1-layer4 is recomputed in the "
+                    "backward pass")
     _load_start(cfg, model, logger)
 
     loader, normalize = build_train_loader(cfg, logger, data_rank, data_world)

@@ -93,9 +93,47 @@ def test_pspnet50_eval_logits_match_jax(psp_variables):
                                rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("depth", [18, 50])
+@pytest.mark.parametrize("arch", ["psp", "psa"])
+def test_state_dict_from_jax_at_depth_101(arch):
+    """The 101-layer recipes' models (``config/*/*_{psp,psa}net101.yaml``):
+    the JAX PSPNet101 / PSANet101 variable tree (shapes from
+    ``jax.eval_shape``, values drawn from a seed) through
+    ``state_dict_from_jax(variables, arch, 101)`` equals the JAX exporter's
+    entry for entry and loads strictly into the port's model, layer3's
+    blocks 0-22 included."""
+    from semseg_tpu.models.psanet import PSANet as JPSANet
+
+    if arch == "psp":
+        jmodel, model = JPSPNet(layers=101, classes=4), PSPNet(layers=101, classes=4)
+    else:
+        keys = dict(layers=101, classes=4, mask_h=9, mask_w=9)
+        jmodel, model = JPSANet(**keys), PSANet(**keys)
+    x = jax.ShapeDtypeStruct((1, 65, 65, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda k, x: jmodel.init({"params": k, "dropout": k}, x,
+                                                     train=True),
+                            jax.random.PRNGKey(0), x)
+    rs = np.random.RandomState(101)
+    variables = jax.tree.map(lambda s: rs.randn(*s.shape).astype(np.float32),
+                             {"params": shapes["params"], "batch_stats": shapes["batch_stats"]})
+    want = export_torch_state_dict(variables, arch, 101, ddp_prefix=False)
+    got = convert.state_dict_from_jax(variables, arch, 101)
+    assert sorted(got) == sorted(want)
+    assert {k.split(".")[1] for k in got if k.startswith("layer3.")} == {
+        str(b) for b in range(23)}
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    model.load_state_dict(got, strict=True)
+
+
+@pytest.mark.parametrize("depth", [18, 50, 101])
 def test_resnet_features_match_jax(depth):
-    """Segmentation strides/dilations, all four stage outputs, f32."""
+    """Segmentation strides/dilations, all four stage outputs, f32; at
+    depth 101 layer3's 23 blocks (two-digit block names) convert too.
+    Tolerance rtol 1e-4 and atol 1e-4; at depth 101 the seeded eval
+    BatchNorm grows layer3's and layer4's features to 5.4e4 and 7.3e4
+    through the residual sums, so there atol is 1e-6 of the stage's largest
+    magnitude (f32 sums of terms that size; measured at most 3.6e-7 of it,
+    on elements near zero)."""
     jmodel = JResNet(depth=depth, stage_strides=SEG_STRIDES,
                      stage_dilations=SEG_DILATIONS)
     x = np.random.RandomState(3).randn(1, 17, 17, 3).astype(np.float32)
@@ -112,8 +150,9 @@ def test_resnet_features_match_jax(depth):
         got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert len(got) == 4
     for g, w in zip(got, want):
+        atol = 1e-4 if depth < 101 else 1e-6 * np.abs(w).max()
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), w,
-                                   rtol=1e-4, atol=1e-4)
+                                   rtol=1e-4, atol=atol)
 
 
 def test_resnet_classifier_matches_jax():

@@ -131,3 +131,35 @@ def tp_psa_module(rank, url, x, cot):
         return out
     finally:
         dist.destroy_process_group()
+
+
+def remat_arms(rank, url, world, grids, specs):
+    """Rank ``rank`` of ``world`` gloo ranks on the CPU, in one process
+    group: for each ``model_parallel`` of ``grids``, the
+    ``world / model_parallel x model_parallel`` grid and each
+    ``parity.StepSpec`` of ``specs`` in turn through ``parity``'s own
+    trainer and steps. By ``model_parallel``, per spec the reduced losses,
+    and on rank 0 the state (gathered under TP)."""
+    import torch.distributed as dist
+
+    from semseg_torch.parallel import parity
+    from semseg_torch.parallel.dist import grid, grid_groups, init_process_group
+
+    group = init_process_group(url, "gloo", rank, world, timeout_s=120)
+    try:
+        out = {}
+        for model_parallel in grids:
+            g = grid(world, model_parallel)
+            tp_group, data_group = (grid_groups(g, rank) if model_parallel > 1
+                                    else (None, group))
+            out[model_parallel] = []
+            for spec in specs:
+                tr = parity._trainer(spec, torch.device("cpu"), process_group=data_group,
+                                     tp_group=tp_group)
+                res = parity._steps(tr, spec.batches, "cpu", g.data_index(rank), g.data_world)
+                out[model_parallel].append({"losses": res["losses"],
+                                            "state": res["state"] if rank == 0 else None})
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
