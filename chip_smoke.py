@@ -14,8 +14,10 @@ sharing the card (phase 21); the serving export of both models (phase
 22); and the evaluator's window and spatial partitions over two entries of
 the card and its host pipeline (phase 23); tensor-parallel ranks (phase
 24); the bf16-vs-f32 convergence license and the launch scripts (phase
-25); and the 101-layer Cityscapes recipes with and without ``remat``
-(phase 26). The CUDA
+25); the 101-layer Cityscapes recipes with and without ``remat``
+(phase 26); and reproducible float32 training through the driver on the
+ADE20K PSPNet50 and Cityscapes PSANet50 recipes, the evaluator's bounded
+per-shape caches, ADE20K and VOC2012 serving (phase 27). The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
 each (12 runs after 4):
 
@@ -198,7 +200,27 @@ each (12 runs after 4):
    BatchNorm statistics taken from train-mode windows as training leaves
    them (with the init's, eval BatchNorm grows the logits to about 1e4):
    the stitch twice and PSANet101's bf16 forward 4 times a request,
-   images/s, fused against plain at the bars of phases 6 and 9.
+   images/s, fused against plain at the bars of phases 6 and 9;
+27. reproducible float32 training through ``semseg_torch.train.run``
+   (which trains under cuDNN's deterministic algorithms): the ADE20K
+   PSPNet50 recipe (``config/ade20k/ade20k_pspnet50.yaml``, 150 classes,
+   473x473 crops, batch 16) on 32 seeded ADE20K-like images of distinct
+   sizes (long side 256-2048, labels 0-149 and 255), and the Cityscapes
+   PSANet50 recipe at 705x705, batch 8, on 16 of phase 13's street images;
+   each 2 epochs of 2 steps, twice uninterrupted and once stopped by the
+   preemption hook after step 3 and resumed with ``resume auto``: every
+   state entry (weights, BN statistics, ``num_batches_tracked``, momentum,
+   the step) of the three runs bit for bit, the launches exact (PSANet50:
+   the 3xTF32 forward, da and dx twice a step; PSPNet50: none); then
+   ``semseg_torch.test.run`` (f32) with the first ADE20K run's checkpoint
+   over 24 of those images, so the driver picks ``device_bucketed``: after
+   each image the allocated memory and the per-shape caches' entries, each
+   cache within ``CACHE_ENTRIES``, the memory beside the caches flat within
+   ``RESIDUAL_MIB``, an evicted size and a fresh evaluator bit for bit the
+   driver's PNGs; bf16 ADE20K PSANet50 serving (465x465 windows, hw 900)
+   over the 24 images with the stitch kernel once a chunk and the bf16
+   forward twice a chunk, fused against unfused stitch at 150 classes at
+   phase 6's bars; one VOC2012 PSPNet50 request (21 classes).
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -224,6 +246,7 @@ import signal
 import subprocess
 import sys
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
@@ -1462,13 +1485,20 @@ def host_state(trainer):
     return host_snapshot(trainer.state_dict())
 
 
+def state_pairs(a, b):
+    """Two host states' tensors side by side: every state_dict entry
+    (weights, BN statistics, ``num_batches_tracked``) and every momentum
+    buffer."""
+    pairs = [(a["state_dict"][k], b["state_dict"][k]) for k in a["state_dict"]]
+    return pairs + [(v["momentum_buffer"], b["optimizer"]["state"][k]["momentum_buffer"])
+                    for k, v in a["optimizer"]["state"].items()]
+
+
 def state_spread(a, b):
     """``(equal, worst)``: whether two host states are equal bit for bit
     (weights, BN statistics, momentum, step), and the largest relative L2
     distance of one of their float tensors."""
-    pairs = [(a["state_dict"][k], b["state_dict"][k]) for k in a["state_dict"]]
-    pairs += [(v["momentum_buffer"], b["optimizer"]["state"][k]["momentum_buffer"])
-              for k, v in a["optimizer"]["state"].items()]
+    pairs = state_pairs(a, b)
     equal = a["step"] == b["step"] and all(torch.equal(x, y) for x, y in pairs)
     worst = max(((x.double() - y.double()).norm() / y.double().norm().clamp_min(1e-30)).item()
                 for x, y in pairs if x.is_floating_point())
@@ -2530,12 +2560,13 @@ def pspnet101_cfg(**kw):
     return SimpleNamespace(**{**vars(pspnet_cfg()), "layers": 101, **kw})
 
 
-def f32_arm(dev, cfg, images, labels, steps, per_step):
-    """A float32 model of ``cfg`` (seed 0, ``cfg.remat``) through the
-    Trainer for ``steps`` steps on one device-resident batch, each
-    launching ``per_step``; the losses, the seconds of each step, their
-    mean after the first, the peak memory, the final state, the momentum
-    buffers and the launches. ``chip_probes/remat_memory.py`` runs it too."""
+def f32_arm(dev, cfg, images, labels, steps, per_step, warmup=1):
+    """A float32 model of ``cfg`` (seed 0, ``cfg.remat``, ``cfg.classes``)
+    through the Trainer for ``steps`` steps on one device-resident batch,
+    each launching ``per_step``; the losses, the seconds of each step, their
+    mean after the first ``warmup``, the peak memory, the final state, the
+    momentum buffers and the launches. ``chip_probes/remat_memory.py`` and
+    ``chip_probes/repro_smoke.py`` run it too."""
     from semseg_torch.engine.optim import make_sgd
     from semseg_torch.engine.trainer import Trainer
     from semseg_torch.models.build import build_model
@@ -2549,7 +2580,8 @@ def f32_arm(dev, cfg, images, labels, steps, per_step):
     if model.remat is not remat or (torch.backends.cudnn.allow_tf32
                                     or torch.backends.cuda.matmul.allow_tf32):
         raise AssertionError(f"{label}: the model's remat {model.remat}, or TF32 on")
-    tr = Trainer(model, make_sgd(model, 0.01), classes=19, ignore_label=255, aux_weight=0.4,
+    tr = Trainer(model, make_sgd(model, 0.01), classes=cfg.classes, ignore_label=255,
+                 aux_weight=0.4,
                  base_lr=0.01, max_iter=100, power=0.9, zoom_factor=8,
                  normalize=(IMAGENET_MEAN, IMAGENET_STD))
     losses, seconds, by_path = [], [], launches()
@@ -2566,7 +2598,7 @@ def f32_arm(dev, cfg, images, labels, steps, per_step):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # On the host: the next arm's peak holds none of this arm's tensors.
     out = dict(losses=torch.stack(losses).cpu(), seconds=seconds,
-               step_s=sum(seconds[1:]) / len(seconds[1:]), peak_gib=peak,
+               step_s=sum(seconds[warmup:]) / len(seconds[warmup:]), peak_gib=peak,
                state={k: v.cpu() for k, v in model.state_dict().items()}, counts=by_path,
                momentum=[s["momentum_buffer"].cpu()
                          for s in tr.optimizer.state_dict()["state"].values()])
@@ -2761,14 +2793,12 @@ def phase_r101(dev, root, images, smi):
     path and the readings."""
     phase_t0 = time.perf_counter()
     by_path, out = {}, {}
+    from semseg_torch.utils.misc import deterministic_cudnn
+
     batch8 = street_batch(dev, R101_BATCH, R101_CROP, 300)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         arms = {remat: f32_arm(dev, psanet101_cfg(remat=remat), *batch8, R101_STEPS,
                                F32_TRAIN_STEP) for remat in (False, True)}
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     off, on = arms[False], arms[True]
     state_diff = [k for k, v in off["state"].items() if not torch.equal(on["state"][k], v)]
     mom_diff = [i for i, (a, b) in enumerate(zip(on["momentum"], off["momentum"]))
@@ -2839,6 +2869,424 @@ def phase_r101(dev, root, images, smi):
     return by_path, out
 
 
+# Phase 27: the training driver reproducible in float32 (ROADMAP §3), on
+# the ADE20K PSPNet50 recipe (``config/ade20k/ade20k_pspnet50.yaml``: 150
+# classes, 473x473 crops, batch 16) and the Cityscapes PSANet50 recipe
+# (705x705, batch 8, the 3xTF32 kernels); the evaluator's per-shape caches
+# over ADE20K-like image sizes; ADE20K PSANet50 and VOC2012 PSPNet50 serving.
+ADE_TRAIN, ADE_EVAL = 32, 24  # training images (2 steps of 16), evaluated ones
+ADE_ROOT = Path("build") / "chip_smoke_ade"
+# The allocated device memory beside the caches and the pending class maps
+# (each counted as the allocator's block that holds it) may move by this
+# much over the evaluated images: nothing else is kept per image shape.
+RESIDUAL_MIB = 1
+
+
+def ade_sizes(n, seed=7):
+    """``n`` distinct ``(h, w)``, ADE20K-like: the long side uniform in
+    256-2048, the short side 0.5-1 of it, landscape 7 times in 10."""
+    rs = np.random.RandomState(seed)
+    sizes = []
+    while len(sizes) < n:
+        long = int(rs.randint(256, 2049))
+        short = int(round(long * rs.uniform(0.5, 1.0)))
+        hw = (short, long) if rs.rand() < 0.7 else (long, short)
+        if hw not in sizes:
+            sizes.append(hw)
+    return sizes
+
+
+def ade_sample(seed, h, w):
+    """A seeded indoor-like uint8 RGB image and its ADE20K label map: a
+    background class and 6-13 rectangles of other classes (0-149), each
+    class one colour of a fixed palette, pixel noise; 255 (unlabelled) on a
+    band along the left edge and on one patch."""
+    rs = np.random.RandomState(seed)
+    label = np.full((h, w), rs.randint(150), np.uint8)
+    for _ in range(rs.randint(6, 14)):
+        bh, bw = rs.randint(h // 8, h // 2 + 1), rs.randint(w // 8, w // 2 + 1)
+        y, x = rs.randint(0, h - bh + 1), rs.randint(0, w - bw + 1)
+        label[y:y + bh, x:x + bw] = rs.randint(150)
+    palette = np.random.RandomState(150).randint(0, 256, (150, 3)).astype(np.int16)
+    img = palette[label] + rs.randint(-10, 11, (h, w, 3)).astype(np.int16)
+    label[:, :max(1, w // 32)] = 255
+    y, x = rs.randint(0, h - h // 8), rs.randint(0, w - w // 8)
+    label[y:y + h // 8, x:x + w // 8] = 255
+    return np.clip(img, 0, 255).astype(np.uint8), label
+
+
+def write_ade_dataset(root=ADE_ROOT):
+    """``ADE_TRAIN`` ADE20K-like samples of distinct sizes as PNGs,
+    ``train.txt`` listing them and ``eval.txt`` the first ``ADE_EVAL``."""
+    import cv2
+
+    root = Path(root)
+    (root / "img").mkdir(parents=True, exist_ok=True)
+    sizes = ade_sizes(ADE_TRAIN)
+
+    def write(k):
+        img, label = ade_sample(500 + k, *sizes[k])
+        cv2.imwrite(str(root / "img" / f"ade_{k}.png"), img[:, :, ::-1],
+                    [cv2.IMWRITE_PNG_COMPRESSION, 1])
+        cv2.imwrite(str(root / "img" / f"ade_{k}_label.png"), label,
+                    [cv2.IMWRITE_PNG_COMPRESSION, 1])
+        return f"img/ade_{k}.png img/ade_{k}_label.png"
+
+    with ThreadPoolExecutor(8) as pool:
+        lines = list(pool.map(write, range(ADE_TRAIN)))
+    (root / "train.txt").write_text("\n".join(lines) + "\n")
+    (root / "eval.txt").write_text("\n".join(lines[:ADE_EVAL]) + "\n")
+    return root
+
+
+def recipe_cfg(config, root, train_list, save, batch, **keys):
+    """``config`` through the training driver's parser: float32, one GPU,
+    2 epochs at ``batch``, no validation, seed 0; ``keys`` set on it."""
+    from semseg_torch.train import parse_args
+
+    cfg = parse_args([
+        "--config", config, "data_root", str(root), "train_list", str(train_list),
+        "save_path", str(save), "train_gpu", "[0]", "batch_size", str(batch), "epochs", "2",
+        "evaluate", "False", "print_freq", "1", "compute_dtype", "float32",
+        "manual_seed", "0"])
+    cfg.update(keys)
+    return cfg
+
+
+def state_diff(a, b):
+    """``(differ, total, max_abs)``: how many entries of two host states
+    differ (:func:`state_pairs` and the step), of how many, and the largest
+    absolute difference."""
+    pairs = state_pairs(a, b) + [(torch.tensor(a["step"]), torch.tensor(b["step"]))]
+    gaps = [(x.double() - y.double()).abs().max().item() for x, y in pairs
+            if not torch.equal(x, y)]
+    return len(gaps), len(pairs), max(gaps, default=0.0)
+
+
+def repro_runs(label, make_cfg, per_step, dev, out):
+    """A recipe through ``semseg_torch.train.run`` in float32: twice
+    uninterrupted (2 epochs of 2 steps), then stopped by the preemption
+    hook after step 3 and resumed with ``resume auto``; every step launches
+    ``per_step``. Returns the second run and the resumed one against the
+    first (:func:`state_diff`), the runs' seconds, the first run's launches
+    and peak memory, and cuDNN's (deterministic, benchmark) flags seen
+    inside the runs."""
+    from semseg_torch.train import run
+    from semseg_torch.utils.misc import get_logger
+
+    first, flags, counting = launches(), set(), [True]
+
+    def hook(it, metrics):
+        counts = read_counts()
+        check_counts(f"{label} f32 driver step {it}", counts, launches(**per_step))
+        if counting[0]:
+            first.update({k: first[k] + v for k, v in counts.items()})
+        flags.add((torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark))
+        if not np.isfinite(metrics["loss"].item()):
+            raise AssertionError(f"{label} step {it}: loss {metrics['loss'].item()}")
+        reset_counts()
+
+    states, seconds, peak = {}, {}, None
+    snap = out / "pre" / "train_preempt.pth"
+    for name, save, keys, steps in (("a", "a", {}, 4), ("b", "b", {}, 4),
+                                    ("pre", "pre", dict(_preempt_after_step=3), 3),
+                                    ("resumed", "pre", dict(resume="auto"), 4)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run(make_cfg(out / save, **keys), dev, logger=get_logger(), step_hook=hook)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        counting[0] = False
+        peak = peak or torch.cuda.max_memory_allocated() / 2 ** 30
+        if res["trainer"].step_count != steps or (name == "pre") != bool(res["preempt"]) or (
+                name == "resumed" and snap.exists()):
+            raise AssertionError(f"{label} run {name}: step {res['trainer'].step_count}, "
+                                 f"preempt {res['preempt']}, snapshot {snap.exists()}")
+        if name != "pre":
+            states[name] = host_state(res["trainer"])
+        del res
+    return dict(ab=state_diff(states["a"], states["b"]),
+                ra=state_diff(states["resumed"], states["a"]),
+                seconds=seconds, counts=first, peak_gib=peak, flags=sorted(flags))
+
+
+def allocator_blocks():
+    """Address -> size of every block the caching allocator has handed out:
+    what ``memory_allocated`` counts (a free block reused whole may be up
+    to a MiB larger than the tensor put in it)."""
+    return {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+
+def held_bytes(tensors, blocks):
+    """The allocator's bytes behind ``tensors`` (each in a block of its own)."""
+    return sum(blocks.get(t.untyped_storage().data_ptr(), t.untyped_storage().nbytes())
+               for t in tensors)
+
+
+def cache_state(ev, blocks=None):
+    """The per-shape caches behind ``ev``: the entries of each (the
+    evaluator's geometries, the two numpy resize matrices' ``lru_cache``,
+    the tensor caches), and the device bytes of the blocks the tensor caches
+    hold (``blocks``: :func:`allocator_blocks`)."""
+    from semseg_torch.engine import evaluator
+    from semseg_torch.ops import resize, stitch
+    from semseg_torch.parallel import spatial
+
+    fns = {"interp_matrix": resize.interp_matrix, "coverage": evaluator._coverage,
+           "stitch_taps": stitch._taps, "stitch_tap_records": stitch._tap_records,
+           "pool_matrix": spatial._pool_matrix}
+    entries = {"geometries": len(ev._geometries),
+               "numpy_half_pixel": resize._interp_matrix_half_pixel.cache_info().currsize,
+               "numpy_align_corners": resize._interp_matrix.cache_info().currsize,
+               **{k: len(fn.cache) for k, fn in fns.items()}}
+    tensors = [t for fn in fns.values() for value in fn.cache.values()
+               for t in (value if isinstance(value, tuple) else (value,)) if t.is_cuda]
+    return entries, held_bytes(tensors, blocks or {})
+
+
+def clear_caches():
+    """Empty the per-shape caches of the resizes, the stitch and the
+    evaluator."""
+    from semseg_torch.engine import evaluator
+    from semseg_torch.ops import resize, stitch
+    from semseg_torch.parallel import spatial
+
+    for fn in (resize.interp_matrix, evaluator._coverage, stitch._taps, stitch._tap_records,
+               spatial._pool_matrix, resize._interp_matrix_half_pixel, resize._interp_matrix):
+        fn.cache_clear()
+
+
+def ade_test_driver(dev, root, model_path, smi, gate):
+    """``semseg_torch.test.run`` of the ADE20K PSPNet50 recipe (float32,
+    single scale, flip) with ``model_path`` over the ``ADE_EVAL`` images of
+    distinct sizes, so that the driver picks ``device_bucketed``; after each
+    image the allocated device memory and the caches' entries and bytes
+    (:func:`cache_state`). Then the first image, its entries evicted,
+    predicted again (its resize matrices rebuilt), and the last image
+    through a fresh evaluator with every cache emptied, each against the
+    driver's PNG. With ``gate``: every cache
+    within ``CACHE_ENTRIES`` entries after every image and the resize
+    matrices' cache full by the end, the memory beside the caches and the
+    pending class maps within ``RESIDUAL_MIB``, both predictions bit for
+    bit, no kernel launched. Returns the launches and the readings."""
+    import cv2
+
+    from semseg_torch import test as ttest
+    from semseg_torch.engine.evaluator import SlidingWindowEvaluator
+    from semseg_torch.train import parse_args
+    from semseg_torch.utils import misc
+
+    bound = getattr(misc, "CACHE_ENTRIES", None)  # None: a checkout without the bound
+    save = OUT_DIR / "repro" / "ade_test"
+    cfg = parse_args(["--config", "config/ade20k/ade20k_pspnet50.yaml",
+                      "data_root", str(root), "test_list", str(root / "eval.txt"),
+                      "model_path", str(model_path), "save_folder", str(save),
+                      "test_gpu", "[0]"])
+    trace, refs, seen = [], [], {}
+    original = SlidingWindowEvaluator.predict_async
+
+    def recording(self, image):
+        lazy = original(self, image)
+        seen["ev"] = self
+        refs.append(weakref.ref(lazy))
+        blocks = allocator_blocks()
+        pending = held_bytes([t for t in (r() for r in refs) if t is not None], blocks)
+        entries, held = cache_state(self, blocks)
+        allocated = sum(blocks.values())
+        trace.append(dict(hw=tuple(image.shape[:2]), allocated=allocated, held=held,
+                          residual=allocated - held - pending, entries=entries))
+        return lazy
+
+    clear_caches()
+    reset_counts()
+    SlidingWindowEvaluator.predict_async = recording
+    try:
+        t0 = time.perf_counter()
+        result = ttest.run(cfg, device=dev, logger=misc.get_logger())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        SlidingWindowEvaluator.predict_async = original
+    counts = read_counts()
+    ev = seen["ev"]
+    mib = 2 ** 20
+    for k, t in enumerate(trace):
+        log(f"[27 caches] image {k + 1} {t['hw'][0]}x{t['hw'][1]}: allocated "
+            f"{t['allocated'] / mib:.2f} MiB, caches {t['held'] / mib:.2f} MiB, beside them "
+            f"{t['residual'] / mib:.2f} MiB; entries {t['entries']}")
+    lines = (root / "eval.txt").read_text().splitlines()
+
+    def image(k):
+        return cv2.cvtColor(cv2.imread(str(root / lines[k].split()[0])), cv2.COLOR_BGR2RGB)
+
+    def gray(k):
+        return cv2.imread(str(save / "gray" / f"{Path(lines[k].split()[0]).stem}.png"),
+                          cv2.IMREAD_GRAYSCALE)
+
+    from semseg_torch.engine.evaluator import _scaled_size
+    from semseg_torch.ops.resize import interp_matrix
+
+    h0, w0 = image(0).shape[:2]
+    new_h, new_w = _scaled_size(h0, w0, 1.0, cfg.base_size)
+    evicted = not any((a, b, True, ev.device) in interp_matrix.cache
+                      for a, b in ((h0, new_h), (w0, new_w), (new_h, h0), (new_w, w0)))
+    again = np.array_equal(ev.predict(image(0)), gray(0))
+    clear_caches()
+    fresh = ttest.make_evaluator(cfg, ev.model, dev, ev.mode)
+    last = np.array_equal(fresh.predict(image(ADE_EVAL - 1)), gray(ADE_EVAL - 1))
+    residuals = [t["residual"] for t in trace]
+    spread = (max(residuals) - min(residuals)) / mib
+    most = {k: max(t["entries"][k] for t in trace) for k in trace[0]["entries"]}
+    full_at = next((k + 1 for k, t in enumerate(trace)
+                    if bound and t["entries"]["interp_matrix"] >= bound), None)
+    log(f"[27 caches] test driver, ADE20K PSPNet50 f32, {result['images']} images of distinct "
+        f"sizes, mode {ev.mode}: {seconds:.2f} s, mIoU/mAcc/allAcc "
+        f"{[round(v, 4) for v in result['metrics']]}; allocated {trace[0]['allocated'] / mib:.2f}"
+        f" -> {trace[-1]['allocated'] / mib:.2f} MiB, caches {trace[0]['held'] / mib:.2f} -> "
+        f"{trace[-1]['held'] / mib:.2f} MiB (most {max(t['held'] for t in trace) / mib:.2f}), "
+        f"beside them within {spread:.3f} MiB; most entries {most} (bound {bound}; the resize "
+        f"matrices' cache full at image {full_at}); image 1 evicted {evicted}, predicted again "
+        f"bit for bit {again}; image {ADE_EVAL} through a fresh evaluator bit for bit {last}; "
+        f"launches {counts}; on {smi}")
+    ok = (ev.mode == "device_bucketed" and result["images"] == ADE_EVAL
+          and all(np.isfinite(result["metrics"])) and again and last)
+    if gate and not (ok and evicted and full_at is not None and spread <= RESIDUAL_MIB
+                     and all(v <= bound for v in most.values())):
+        raise AssertionError("ADE20K test driver: the caches or the predictions fail the "
+                             "gates (the lines above)")
+    check_counts("ADE20K f32 test driver", counts, launches())
+    del ev, fresh
+    torch.cuda.empty_cache()
+    return counts, dict(seconds=seconds, spread_mib=spread, most=most, full_at=full_at,
+                        mib=[t["allocated"] / mib for t in trace])
+
+
+def served(label, config, dev, images, psa, **keys):
+    """``build_evaluator`` of ``config`` (bf16, random weights of seed 0,
+    ``window_batch`` 8) over ``images``, one warm-up request first: each
+    request launches the stitch kernel once a chunk and, with ``psa``, the
+    bf16 tensor-core forward twice a chunk, as the evaluator's geometry of
+    the image gives them. Returns the evaluator, the launches, the windows
+    and images/s."""
+    from semseg_torch.serve import build_evaluator
+    from semseg_torch.train import parse_args
+    from semseg_torch.utils.misc import get_logger
+
+    cfg = parse_args(["--config", config])
+    cfg.update(dict(allow_random_weights=True, window_batch=8, model_path="", **keys))
+    ev = build_evaluator(cfg, get_logger(), dtype=torch.bfloat16, device=dev, seed=0)
+    if not ev.fused_stitch:
+        raise AssertionError(f"{label}: the bf16 CUDA evaluator did not pick the fused kernel")
+    ev.predict(images[0])
+    torch.cuda.synchronize()
+    total, windows, seconds = launches(), 0, 0.0
+    for k, img in enumerate(images):
+        h, w = img.shape[:2]
+        chunks = sum(len(ev._geometry(h, w, s).chunks) for s in ev.scales)
+        windows += sum(sum(ev._geometry(h, w, s).n_real) for s in ev.scales)
+        reset_counts()
+        t0 = time.perf_counter()
+        pred = ev.predict(img)
+        seconds += time.perf_counter() - t0
+        counts = read_counts()
+        check_counts(f"{label} image {k} {h}x{w}", counts, launches(
+            upsample_softmax_flip=chunks, psa_softmax_bmm_wgmma=2 * chunks if psa else 0))
+        if pred.shape != (h, w) or pred.dtype != np.uint8 or pred.max() >= cfg.classes:
+            raise AssertionError(f"{label}: bad class map {pred.shape} {pred.dtype}")
+        total = {n: total[n] + v for n, v in counts.items()}
+    return ev, cfg, total, windows, len(images) / seconds
+
+
+def phase_repro(dev, smi, gate=True):
+    """Phase 27. (a) Float32 training through ``semseg_torch.train.run``,
+    twice uninterrupted and once preempted after step 3 and resumed
+    (:func:`repro_runs`): the ADE20K PSPNet50 recipe on ``ADE_TRAIN``
+    ADE20K-like images of distinct sizes (no kernel launched), and the
+    Cityscapes PSANet50 recipe at batch 8 on 16 of phase 13's street images
+    (the 3xTF32 forward, da and dx twice a step); with ``gate``, all three
+    runs bit for bit. (b) The ADE20K test driver with the first run's
+    checkpoint and the per-shape caches (:func:`ade_test_driver`). (c) bf16
+    ADE20K PSANet50 (465 windows, hw 900) over the same images with exact
+    launches, fused against unfused stitch at 150 classes at the bars of
+    phase 6; one VOC2012 PSPNet50 request (21 classes). Returns the
+    launches by path and the readings. ``chip_probes/repro_smoke.py`` runs
+    it ungated on another checkout."""
+    import cv2
+
+    phase_t0 = time.perf_counter()
+    out = OUT_DIR / "repro"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    ade = write_ade_dataset()
+    street = Path("build") / "chip_smoke_data"
+    if not (street / "train.txt").is_file():
+        write_dataset(street)
+    lines = (street / "train.txt").read_text().splitlines()
+    (street / "repro16.txt").write_text("\n".join(lines[:16]) + "\n")
+    log(f"[27 repro] wrote {ADE_TRAIN} ADE20K-like images of distinct sizes, long side "
+        f"256-2048, in {time.perf_counter() - t0:.1f} s")
+
+    by_path, readings, failed = {}, {}, []
+    recipes = (
+        ("ADE20K PSPNet50", "ade_pspnet50_f32_driver", {}, lambda save, **k: recipe_cfg(
+            "config/ade20k/ade20k_pspnet50.yaml", ade, ade / "train.txt", save, 16, **k)),
+        ("Cityscapes PSANet50", "psanet50_f32_driver", F32_TRAIN_STEP, lambda save, **k:
+            recipe_cfg("config/cityscapes/cityscapes_psanet50.yaml", street,
+                       street / "repro16.txt", save, 8, **k)))
+    for label, path, per_step, make in recipes:
+        r = repro_runs(label, make, per_step, dev, out / path)
+        by_path[path], readings[label] = r["counts"], r
+        cfg = make(out)
+        log(f"[27 repro] {label} f32 {cfg.train_h}x{cfg.train_w} batch {cfg.batch_size}, "
+            f"{cfg.classes} classes, through run(), 2 epochs x 2 steps: seconds "
+            f"{ {k: round(v, 2) for k, v in r['seconds'].items()} }, peak {r['peak_gib']:.2f} "
+            f"GiB; (cudnn.deterministic, benchmark) inside {r['flags']}; second run vs first: "
+            f"{r['ab'][0]} of {r['ab'][1]} entries differ, max abs {r['ab'][2]:.3e}; resumed vs "
+            f"first: {r['ra'][0]} of {r['ra'][1]}, max abs {r['ra'][2]:.3e}; launches over the "
+            f"first run {r['counts']}; on {smi}")
+        if r["ab"][0] or r["ra"][0]:
+            failed.append(label)
+        if path != "ade_pspnet50_f32_driver":
+            shutil.rmtree(out / path, ignore_errors=True)
+    for name in ("b", "pre"):  # keep the first run's checkpoints for (b)
+        shutil.rmtree(out / "ade_pspnet50_f32_driver" / name, ignore_errors=True)
+
+    counts, readings["caches"] = ade_test_driver(
+        dev, ade, out / "ade_pspnet50_f32_driver" / "a" / "train_epoch_2.pth", smi, gate)
+    by_path["ade_pspnet50_test_driver"] = counts
+    shutil.rmtree(out, ignore_errors=True)
+
+    names = (ade / "eval.txt").read_text().splitlines()
+    images = [cv2.cvtColor(cv2.imread(str(ade / ln.split()[0])), cv2.COLOR_BGR2RGB)
+              for ln in names]
+    ev, cfg, counts, windows, rate = served("ADE20K PSANet50", "config/ade20k/ade20k_psanet50.yaml",
+                                            dev, images, True)
+    by_path["ade_psanet50_serving"] = counts
+    log(f"[27 serving] ADE20K PSANet50 bf16 {cfg.test_h}x{cfg.test_w} windows, base "
+        f"{cfg.base_size}, 150 classes, flip: {len(images)} requests of distinct sizes, "
+        f"{windows} windows, {rate:.3f} images/s; launches {counts}; on {smi}")
+    phase_stitch_vs_plain(dev, ev, images[0], cfg, 27, "ADE20K PSANet50 150 classes")
+    del ev
+    voc = ade_sample(900, 375, 500)[0]
+    ev, cfg, counts, windows, rate = served("VOC2012 PSPNet50",
+                                            "config/voc2012/voc2012_pspnet50.yaml", dev, [voc],
+                                            False)
+    by_path["voc_pspnet50_serving"] = counts
+    log(f"[27 serving] VOC2012 PSPNet50 bf16, 21 classes, one 375x500 request: {windows} "
+        f"windows, launches {counts}")
+    del ev
+    torch.cuda.empty_cache()
+    readings["seconds"] = time.perf_counter() - phase_t0
+    log(f"[27 repro] phase {readings['seconds']:.1f} s on {smi}")
+    if gate and failed:
+        raise AssertionError(f"float32 runs through run() not bit for bit: {failed} (the lines "
+                             "above)")
+    return by_path, readings
+
+
 def main():
     script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2888,6 +3336,7 @@ def main():
                               timing["images_per_s"])
     conv_paths, _, _, conv_lines = phase_convergence(dev, smi)
     r101_paths, r101 = phase_r101(dev, Path("build") / "chip_smoke_data", images, smi)
+    repro_paths, repro = phase_repro(dev, smi)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "semseg_tpu"))
@@ -2904,7 +3353,9 @@ def main():
         f"{r101['f32_b8'][True]['peak_gib']:.2f} / {r101['f32_b8'][False]['peak_gib']:.2f} GiB; "
         f"batch 16 remat {r101['f32_b16_remat']['peak_gib']:.2f} GiB; serving PSPNet101 "
         f"{r101['PSPNet101_images_per_s']:.4f}, PSANet101 {r101['PSANet101_images_per_s']:.4f} "
-        f"images/s; phase 26 {r101['seconds']:.1f} s; the script "
+        f"images/s; phase 26 {r101['seconds']:.1f} s; phase 27 {repro['seconds']:.1f} s, "
+        f"ADE20K PSPNet50 f32 batch 16 peak {repro['ADE20K PSPNet50']['peak_gib']:.2f} GiB; "
+        f"the script "
         f"{time.perf_counter() - script_t0:.1f} s; on {smi}"
         + (f"; {'; '.join(notes)}" if notes else ""))
 
@@ -2915,7 +3366,7 @@ def main():
                "pspnet_multiscale": ms_counts["PSPNet50"],
                "psanet_multiscale": ms_counts["PSANet50"], **train_paths, **test_paths,
                **ddp_paths, **export_paths, **partition_paths, **tp_paths, **conv_paths,
-               **r101_paths}
+               **r101_paths, **repro_paths}
     city = stitch_k["psanet-cityscapes"]
     fwd16 = psa_k[("cityscapes-705", "bf16")]
     fwd32 = psa_k[("cityscapes-705", "f32")]

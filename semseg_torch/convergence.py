@@ -54,7 +54,7 @@ from semseg_torch.engine.trainer import Trainer, eval_step
 from semseg_torch.models.build import COMPUTE_DTYPES, build_model
 from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
 from semseg_torch.utils.metrics import summarize
-from semseg_torch.utils.misc import resolve_device
+from semseg_torch.utils.misc import deterministic_cudnn, resolve_device
 
 CLASSES = 6
 CROP = 97            # (97-1) % 8 == 0
@@ -182,16 +182,14 @@ def run(dtype_name: str, steps: int, train_set, val_set, *, arch: str = "psp",
     the dropout and batch-index streams while keeping the init (0 is the
     JAX tool's default). ``step_hook(step, metrics)``, if given, runs after
     every step. Prints one JSON line per eval point and returns the
-    trajectory ``[(step, val_mIoU), ...]``. cuDNN's ``deterministic`` flag
-    is on while it trains and restored after."""
+    trajectory ``[(step, val_mIoU), ...]``. cuDNN's deterministic
+    algorithms are on while it trains (``utils.misc.deterministic_cudnn``)."""
     trainer = build_arm(dtype_name, steps, arch=arch, seed=seed, init_state=init_state,
                         stream_offset=stream_offset, device=device)
     tr_images, tr_labels = train_set
     rs = np.random.RandomState(seed + 1 + stream_offset)
     trajectory = []
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         t0 = time.perf_counter()
         for step in range(steps):
             idx = rs.randint(0, len(tr_images), BATCH)
@@ -208,8 +206,6 @@ def run(dtype_name: str, steps: int, train_set, val_set, *, arch: str = "psp",
                     "loss": round(metrics["loss"].item(), 4),
                     "elapsed_s": round(time.perf_counter() - t0, 1),
                 }), flush=True)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     return trajectory
 
 

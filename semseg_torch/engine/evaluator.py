@@ -46,7 +46,7 @@ import torch
 from semseg_torch.ops.resize import resize_bilinear_half_pixel_cf
 from semseg_torch.ops.stitch import supported, upsample_softmax_flip
 from semseg_torch.parallel.spatial import Spatial, split_rows
-from semseg_torch.utils.misc import resolve_device, tensor_cache
+from semseg_torch.utils.misc import LRU, resolve_device, tensor_cache
 
 
 def _grid_coords(new_h, new_w, crop_h, crop_w, stride_rate):
@@ -251,7 +251,7 @@ class SlidingWindowEvaluator:
             # the kernel averages (window, flipped-window) pairs
             raise ValueError("fused_stitch=True requires flip=True "
                              "(the kernel fuses the flip average)")
-        self._geometries = {}
+        self._geometries = LRU()  # (h, w, scale) -> _Geometry, the recent ones
 
     def with_options(self, **changes) -> "SlidingWindowEvaluator":
         """A new evaluator over the same model with this one's constructor
@@ -314,8 +314,9 @@ class SlidingWindowEvaluator:
     # ------------------------------------------------------------------
     def _geometry(self, h, w, scale) -> _Geometry:
         key = (h, w, scale)
-        if key in self._geometries:
-            return self._geometries[key]
+        geom = self._geometries.get(key)
+        if geom is not None:
+            return geom
         crop_h, crop_w = self.crop_h, self.crop_w
         new_h, new_w = _scaled_size(h, w, scale, self.base_size)
         pad_h = max(crop_h - new_h, 0)
@@ -332,7 +333,7 @@ class SlidingWindowEvaluator:
             chunks.append(chunk + [(0, 0)] * (wb - len(chunk)))
         geom = _Geometry(new_h, new_w, pad_h // 2, pad_w // 2, canvas_h,
                          canvas_w, chunks, n_real)
-        self._geometries[key] = geom
+        self._geometries.put(key, geom)
         return geom
 
     def _scale_probs(self, img: torch.Tensor, scale: float) -> torch.Tensor:

@@ -205,3 +205,26 @@ class ResNetClassifier(ResNet):
         pooled = self.features(x)[3].float().mean(dim=(2, 3)).to(self.dtype)
         return F.linear(pooled, self.fc.weight.to(self.dtype),
                         self.fc.bias.to(self.dtype)).float()
+
+
+def _make(depth):
+    """The ``resnet{depth}`` factory (JAX ``models/resnet.py:198-217``)."""
+
+    def ctor(seg: bool = True, **kwargs) -> ResNet:
+        if seg:
+            kwargs.setdefault("stage_strides", SEG_STRIDES)
+            kwargs.setdefault("stage_dilations", SEG_DILATIONS)
+        return ResNet(depth=depth, **kwargs)
+
+    ctor.__name__ = ctor.__qualname__ = f"resnet{depth}"
+    ctor.__doc__ = (f"``ResNet(depth={depth}, **kwargs)``; ``seg=True`` (the default) sets "
+                    "the segmentation strides and dilations (output stride 8) unless "
+                    "``kwargs`` names them.")
+    return ctor
+
+
+resnet18 = _make(18)
+resnet34 = _make(34)
+resnet50 = _make(50)
+resnet101 = _make(101)
+resnet152 = _make(152)

@@ -20,10 +20,10 @@ import functools
 import numpy as np
 import torch
 
-from semseg_torch.utils.misc import tensor_cache
+from semseg_torch.utils.misc import CACHE_ENTRIES, tensor_cache
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=CACHE_ENTRIES)
 def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     """[out_size, in_size] row-stochastic align-corners interpolation matrix."""
     m = np.zeros((out_size, in_size), dtype=np.float32)
@@ -43,7 +43,7 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=CACHE_ENTRIES)
 def _interp_matrix_half_pixel(in_size: int, out_size: int) -> np.ndarray:
     """[out, in] half-pixel-centers bilinear matrix (cv2 INTER_LINEAR grid):
     ``src = (dst + 0.5) * in/out - 0.5`` with edge clamping."""
@@ -66,7 +66,8 @@ def interp_matrix(in_size: int, out_size: int, half_pixel: bool,
                   device: torch.device) -> torch.Tensor:
     """The ``[out, in]`` float32 matrix as a tensor on ``device``, built
     once per (sizes, grid, device) outside inference mode, and anew for
-    each use while a program is traced (``utils.misc.tensor_cache``)."""
+    each use while a program is traced (``utils.misc.tensor_cache``: the
+    last ``CACHE_ENTRIES`` keys used are kept)."""
     m = (_interp_matrix_half_pixel if half_pixel else _interp_matrix)(
         in_size, out_size
     )

@@ -38,12 +38,13 @@ import datetime
 import os
 import pickle
 import signal
-import socket
 import time
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from semseg_torch.utils.misc import find_free_port
 
 # A collective that waits longer than this raises on every rank still in
 # it, so a rank that died fails the run instead of hanging it.
@@ -107,16 +108,10 @@ def check_devices(cfg, backend: str, device_type: str) -> None:
                              "per rank (name dist_backend gloo to share one)")
 
 
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def rendezvous_url(cfg) -> str:
     """``dist_url``, or on one node a free localhost port."""
     if int(getattr(cfg, "world_size", None) or 1) == 1:
-        return f"tcp://127.0.0.1:{free_port()}"
+        return f"tcp://127.0.0.1:{find_free_port()}"
     return cfg.dist_url
 
 

@@ -135,11 +135,12 @@ def tp_steps(spec: StepSpec, world: int, model_parallel: int, timeout_s: float =
     rank as :func:`one_process_steps`' (the full, gathered ``state`` on
     rank 0 only), plus ``peak_gib`` (CUDA) and ``shard_rows``: the rank's
     output channels of each sharded entry."""
-    from semseg_torch.parallel.dist import free_port, grid, spawn
+    from semseg_torch.parallel.dist import grid, spawn
+    from semseg_torch.utils.misc import find_free_port
 
     grid(world, model_parallel)
     return spawn(_rank_steps, world,
-                 (spec, world, model_parallel, f"tcp://127.0.0.1:{free_port()}"),
+                 (spec, world, model_parallel, f"tcp://127.0.0.1:{find_free_port()}"),
                  timeout_s=timeout_s)
 
 

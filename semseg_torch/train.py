@@ -356,7 +356,22 @@ def run(cfg, device, logger=None, step_hook=None, process_group=None):
     after every step. Returns ``{"trainer": the Trainer, "epochs":
     [per-epoch train stats], "val": [per-epoch validation stats],
     "checkpoints": [epoch saves], "preempt": the snapshot's path or
-    None}``; every save has landed on disk by then, on every rank."""
+    None}``; every save has landed on disk by then, on every rank.
+
+    The run is reproducible on the card, as JAX's step is: cuDNN's
+    deterministic algorithms are on and its autotuning off from start to
+    end, in both compute dtypes (``utils.misc.deterministic_cudnn``; the
+    caller's flags come back however the run ends). With cuDNN's default
+    choice two float32 runs, or a resumed run and the run it continues,
+    part in the last bits of their weights after one step."""
+    from semseg_torch.utils.misc import deterministic_cudnn
+
+    with deterministic_cudnn():
+        return _run(cfg, device, logger, step_hook, process_group)
+
+
+def _run(cfg, device, logger, step_hook, process_group):
+    """:func:`run`'s body, under cuDNN's deterministic algorithms."""
     from semseg_torch.engine import checkpoint as ckpt
     from semseg_torch.engine.optim import make_sgd
     from semseg_torch.engine.trainer import Trainer

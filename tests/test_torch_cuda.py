@@ -1167,3 +1167,49 @@ def test_remat_step_on_the_card_equals_no_remat(cuda, dtype, kind):
     assert len(m1) == len(m0) and all(torch.equal(a, b) for a, b in zip(m1, m0))
     assert held1 < held0, (held1, held0)
     assert peak1 < peak0 or dtype == torch.float32, (peak1, peak0)
+
+
+def test_f32_train_run_on_the_card_repeats_itself(cuda, tmp_path):
+    """``semseg_torch.train.run`` twice, float32, PSANet50 at 97x97 crops
+    (13x13 features, where cuDNN's default f32 algorithms part two runs
+    from one init after one step, ``chip_probes/convergence_determinism.py``),
+    batch 2, 2 steps on 4 seeded images: every weight, BN statistic,
+    momentum buffer and the step equal bit for bit, because ``run`` trains
+    under cuDNN's deterministic algorithms; the caller's flags come back."""
+    from pathlib import Path
+
+    import cv2
+
+    from semseg_torch import train
+    from semseg_torch.engine.checkpoint import host_snapshot
+
+    rs = np.random.RandomState(0)
+    (tmp_path / "img").mkdir()
+    lines = []
+    for k in range(4):
+        img = rs.randint(0, 256, (128, 160, 3)).astype(np.uint8)
+        img[:, :80] //= 3
+        cv2.imwrite(str(tmp_path / "img" / f"{k}.png"), img)
+        cv2.imwrite(str(tmp_path / "img" / f"{k}_label.png"),
+                    rs.randint(0, 5, (128, 160)).astype(np.uint8))
+        lines.append(f"img/{k}.png img/{k}_label.png")
+    (tmp_path / "train.txt").write_text("\n".join(lines) + "\n")
+    states = []
+    for run in ("a", "b"):
+        cfg = train.parse_args([
+            "--config", str(Path(__file__).resolve().parents[1] / "config" / "cityscapes"
+                            / "cityscapes_psanet50.yaml"),
+            "data_root", str(tmp_path), "train_list", str(tmp_path / "train.txt"),
+            "classes", "5", "train_h", "97", "train_w", "97", "batch_size", "2", "epochs", "1",
+            "workers", "2", "compute_dtype", "float32", "train_gpu", "[0]",
+            "save_path", str(tmp_path / run), "manual_seed", "0"])
+        res = train.run(cfg, cuda)
+        assert res["trainer"].step_count == 2
+        states.append(host_snapshot(res["trainer"].state_dict()))
+        assert not torch.backends.cudnn.deterministic  # the caller's flag, back
+    a, b = states
+    assert a["step"] == b["step"] == 2 and list(a["state_dict"]) == list(b["state_dict"])
+    for k, v in a["state_dict"].items():
+        assert torch.equal(b["state_dict"][k], v), k
+    for k, v in a["optimizer"]["state"].items():
+        assert torch.equal(b["optimizer"]["state"][k]["momentum_buffer"], v["momentum_buffer"]), k

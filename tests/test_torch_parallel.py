@@ -30,6 +30,7 @@ from semseg_torch.engine import checkpoint as ckpt
 from semseg_torch.models.build import build_model
 from semseg_torch.models.layers import BatchNorm2d, set_batchnorm_replicas
 from semseg_torch.parallel import dist as pdist
+from semseg_torch.utils.misc import find_free_port
 
 
 @pytest.fixture(autouse=True)
@@ -103,7 +104,7 @@ def test_synced_batchnorm_on_two_ranks_matches_jax(dtype):
     x, g, scale, bias = _bn_inputs(1)
     want = _jax_bn(x, g, scale, bias, 1, dtype)
     ranks = pdist.spawn(torch_ranks.batchnorm_and_collectives, 2,
-                        (f"tcp://127.0.0.1:{pdist.free_port()}", x, g, scale, bias, dtype),
+                        (f"tcp://127.0.0.1:{find_free_port()}", x, g, scale, bias, dtype),
                         timeout_s=120)
     got = {"y": np.concatenate([r["y"] for r in ranks]),
            "dx": np.concatenate([r["dx"] for r in ranks]),
@@ -408,7 +409,7 @@ def test_two_node_rendezvous_matches_one_node(two_rank_run):
 
     root, _ = two_rank_run
     save = root / "two_nodes"
-    url = f"tcp://127.0.0.1:{pdist.free_port()}"
+    url = f"tcp://127.0.0.1:{find_free_port()}"
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     procs = [subprocess.Popen(
         [sys.executable, "-c", _NODE_SCRIPT,

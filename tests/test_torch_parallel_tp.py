@@ -29,6 +29,7 @@ from driver_data import REPO, argv as _argv, cfg as _cfg, threads  # noqa: F401
 from driver_data import write_dataset
 from semseg_torch import train
 from semseg_torch.engine import checkpoint as ckpt
+from semseg_torch.utils.misc import find_free_port
 from semseg_torch.engine.optim import param_groups
 from semseg_torch.models.build import build_model
 from semseg_torch.parallel import dist as pdist
@@ -112,7 +113,7 @@ def test_psa_module_with_an_odd_attention_width():
     x = rs.randn(2, 2048, 17, 17).astype(np.float32)
     cot = rs.randn(2, 4096, 17, 17).astype(np.float32)
     out = pdist.spawn(torch_ranks.tp_psa_module, 2,
-                      (f"tcp://127.0.0.1:{pdist.free_port()}", x, cot), timeout_s=300)
+                      (f"tcp://127.0.0.1:{find_free_port()}", x, cot), timeout_s=300)
     for r, res in enumerate(out):
         assert res["sizes"] == [145, 144]
         for key, rtol in (("y", 1e-5), ("dx", 1e-4)):

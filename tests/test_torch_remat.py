@@ -35,6 +35,7 @@ from semseg_torch.models.layers import Conv2d
 from semseg_torch.models.resnet import ResNet
 from semseg_torch.parallel import dist as pdist
 from semseg_torch.parallel import parity
+from semseg_torch.utils.misc import find_free_port
 from test_torch_models import _randomize_bn
 
 CROP, CLASSES = 49, 5
@@ -286,7 +287,7 @@ def gloo_arms():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OMP_NUM_THREADS", "2")
         ranks = pdist.spawn(torch_ranks.remat_arms, 2,
-                            (f"tcp://127.0.0.1:{pdist.free_port()}", 2, GLOO_GRIDS, specs),
+                            (f"tcp://127.0.0.1:{find_free_port()}", 2, GLOO_GRIDS, specs),
                             timeout_s=300)
     return {mp: [r[mp] for r in ranks] for mp in GLOO_GRIDS}
 

@@ -478,6 +478,42 @@ def test_train_run_and_refusals(tmp_path):
             train.main(_train_args(tmp_path))
 
 
+@pytest.mark.parametrize("end", ["returns", "preempted", "raises"])
+def test_train_run_is_deterministic_and_restores_cudnn_flags(tmp_path, end):
+    """``run`` trains under cuDNN's deterministic algorithms with its
+    autotuning off (so an f32 run repeats itself on the card, and a resumed
+    run the run it continues), whatever the caller set; the caller's flags
+    come back however the run ends: returning, preempted after step 1, or
+    raising from the step hook."""
+    from semseg_torch import train
+
+    cudnn = torch.backends.cudnn
+    _write_dataset(tmp_path)
+    cfg = train.parse_args(_train_args(tmp_path))
+    if end == "preempted":
+        cfg.update(_preempt_after_step=1)
+    seen = []
+
+    def hook(it, metrics):
+        seen.append((cudnn.deterministic, cudnn.benchmark))
+        if end == "raises":
+            raise RuntimeError("the step hook raised")
+
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = False, True
+    try:
+        if end == "raises":
+            with pytest.raises(RuntimeError, match="the step hook raised"):
+                train.run(cfg, "cpu", step_hook=hook)
+        else:
+            res = train.run(cfg, "cpu", step_hook=hook)
+            assert (res["preempt"] is not None) == (end == "preempted")
+        assert seen == [(True, False)] * {"returns": 2, "preempted": 1, "raises": 1}[end]
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def test_model_parallel_needs_a_dividing_world(tmp_path):
     """``model_parallel`` that does not divide the ranks raises with JAX's
     words (``tool/train.py:79-83``): in ``run`` in one process (1 rank),
