@@ -1,8 +1,7 @@
 """The f32 PSANet50 train step of any checkout of the port, on one NVIDIA GPU.
 
 Times ``chip_smoke.py``'s phase-16 f32 step (batch 8, 705x705 crops, 2
-warm-up and 5 timed steps on a device-resident batch, then a profiler
-window of 2 steps with the PSA kernels' share) with the ``semseg_torch``
+warm-up and 5 timed steps on a device-resident batch) with the ``semseg_torch``
 package of ``--root``, so that two checkouts (an older commit unpacked with
 ``git archive`` under ``build/``, and this one) can be compared on one card
 in one call, in turns. Launch counts are not checked: kernel names differ
@@ -40,9 +39,7 @@ def main():
     import semseg_torch
 
     print(f"semseg_torch from {Path(semseg_torch.__file__).parent}", flush=True)
-    res = smoke.phase_f32_train_timing(
-        torch.device("cuda", 0), args.batch, per_step=None,
-        profile_path=smoke.OUT_DIR / f"f32_train_profile_{root.name or 'root'}.txt")
+    res = smoke.phase_f32_train_timing(torch.device("cuda", 0), args.batch, per_step=None)
     print(f"f32 train step {root}: {res}", flush=True)
     return 0
 

@@ -77,16 +77,14 @@ each (12 runs after 4):
    losses;
 14. the train step alone on a device-resident batch (2 warm-up, 5 timed
    steps, the same launches per step): seconds per step, images/s, peak
-   memory; the loader's images/s; a ``torch.profiler`` window of 2 steps
-   (device busy, idle share, the PSA kernels' device time, top kernels in
-   ``build/chip_smoke/``);
+   memory; the loader's images/s;
 15. PSPNet50 bf16, 3 train steps through the same Trainer: no PSA launch;
 16. PSANet50 f32 train step, batch 2: the 3xTF32 forward, dx and da
    twice each, against plain attention: losses within 1e-5
    relative and every parameter gradient within the relative bar of
    ``GRAD_REL``; then the f32 step timed at batch 8 on a device-resident
    batch (2 warm-up, 5 timed steps, the same launches per step): images/s,
-   peak memory, and the PSA kernels' share of a profiler window of 2 steps;
+   peak memory;
 17. the same at shrink 1 (hw 7921): the flash forward's route and the
    flash backward's route (their own counts, and the 3xTF32 forward, dx
    and da they launch) twice each; gradients against
@@ -104,8 +102,7 @@ each (12 runs after 4):
    nothing else; ``predict`` equals the argmax of ``predict_probs`` (but on
    exact ties of the mean); PSANet50 with ``fused_attention`` off against
    on: agreement >= 0.995, probabilities within 2e-2; images/s with the
-   card's name and power limit; a ``torch.profiler`` window of one request
-   (idle share, top kernels in ``build/chip_smoke/``);
+   card's name and power limit;
 20. drivers, the user's workflow on the 1024x2048 street data of phase 13:
    ``semseg_torch.train.run`` of ``cityscapes_psanet50.yaml`` (bf16, batch
    8, 705 crops, 16 training images: 2 steps an epoch, 2 epochs,
@@ -1048,50 +1045,9 @@ def phase_train_slice(dev):
     return cfg, res, by_path, batch, notes
 
 
-def device_profile(fn, path):
-    """``torch.profiler`` over ``fn()``: device busy ms (union of kernel
-    intervals), span ms, idle share; the table of kernels by device time
-    goes to ``path``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        raise AssertionError("the profiler recorded no device activity")
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s_, e_ in spans[1:]:
-        if s_ > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
-    try:
-        table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
-    except (AttributeError, KeyError, ValueError):
-        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(table)
-    psa_rows = {}
-    for ev in prof.key_averages():
-        if "psa_" in ev.key:
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = ev.self_cuda_time_total
-            name = re.search(r"psa_[a-z0-9_]+", ev.key).group(0)
-            ms, count = psa_rows.get(name, (0.0, 0))
-            psa_rows[name] = (ms + dev_us / 1e3, count + ev.count)
-    return busy / 1e3, span / 1e3, 1.0 - busy / span, table, psa_rows
-
-
 def phase_train_timing(cfg, res, dev, batch):
-    """The train step alone on a device-resident batch, the loader alone,
-    and a profiler window (phase 14)."""
+    """The train step alone on a device-resident batch and the loader alone
+    (phase 14)."""
     from semseg_torch.train import build_train_loader
 
     loader, _ = build_train_loader(cfg)
@@ -1124,27 +1080,12 @@ def phase_train_timing(cfg, res, dev, batch):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"timed steps: losses {losses}")
 
-    def two_steps():
-        for _ in range(2):
-            tr.step(images, labels)
-
-    busy, span, idle, table, psa_rows = device_profile(two_steps, OUT_DIR / "train_profile.txt")
-    top = [ln for ln in table.splitlines()[3:11]]
     log(f"[14 train step] PSANet50 bf16 batch {batch} on a device-resident batch: "
         f"{step_s:.4f} s/step = {batch / step_s:.3f} images/s, peak {peak:.2f} GiB, "
         f"losses {[round(v, 4) for v in losses]}; loader alone {loader_rate:.3f} images/s "
-        f"({loader_s:.2f} s for {len(loader) * batch} images, {cfg.workers} threads); "
-        f"profile of 2 steps: device busy {busy:.2f} ms of {span:.2f} ms, idle share "
-        f"{idle:.4f} (table in {OUT_DIR / 'train_profile.txt'})")
-    for ln in top:
-        log(f"[14 train step]   {ln.strip()[:150]}")
-    psa_ms = sum(ms for ms, _ in psa_rows.values())
-    log(f"[14 train step] PSA kernels over the 2 profiled steps: {psa_ms:.3f} ms of {busy:.2f} "
-        f"ms device time ({psa_ms / busy:.4f}): " + ", ".join(
-            f"{k} {ms:.3f} ms / {cnt} launches = {ms / max(cnt, 1):.4f} ms each"
-            for k, (ms, cnt) in sorted(psa_rows.items())))
+        f"({loader_s:.2f} s for {len(loader) * batch} images, {cfg.workers} threads)")
     return dict(step_s=step_s, images_per_s=batch / step_s, peak_gib=peak,
-                loader_images_per_s=loader_rate, idle=idle)
+                loader_images_per_s=loader_rate)
 
 
 def phase_pspnet_train(dev):
@@ -1252,14 +1193,12 @@ def phase_grad_vs_plain(tag, dev, shrink, per_step, timed=0):
     return counts
 
 
-def phase_f32_train_timing(dev, batch=8, per_step=F32_TRAIN_STEP,
-                           profile_path=OUT_DIR / "f32_train_profile.txt"):
+def phase_f32_train_timing(dev, batch=8, per_step=F32_TRAIN_STEP):
     """PSANet50 f32 (the recipe's default ``compute_dtype``) train step at
     ``batch``, 705x705 crops, on a device-resident batch (phase 16): 2
     warm-up and 5 timed steps (host clock, synchronised), each launching
     ``per_step`` (not counted when None, for a tree whose kernels have other
-    names); images/s, peak memory; a profiler window of 2 steps with the PSA
-    kernels' share of the device time."""
+    names); images/s, peak memory."""
     from semseg_torch.engine.optim import make_sgd
     from semseg_torch.engine.trainer import Trainer
     from semseg_torch.models.build import build_model
@@ -1291,23 +1230,12 @@ def phase_f32_train_timing(dev, batch=8, per_step=F32_TRAIN_STEP,
     if not all(np.isfinite(losses)):
         raise AssertionError(f"f32 timed steps: losses {losses}")
 
-    def two_steps():
-        for _ in range(2):
-            tr.step(images, labels)
-
-    busy, span, idle, _, psa_rows = device_profile(two_steps, profile_path)
-    psa_ms = sum(ms for ms, _ in psa_rows.values())
     log(f"[16 f32 train step] PSANet50 f32 batch {batch} 705x705 on a device-resident batch: "
         f"{step_s:.4f} s/step = {batch / step_s:.3f} images/s, peak {peak:.2f} GiB, losses "
-        f"{[round(v, 4) for v in losses]}; profile of 2 steps: device busy {busy:.2f} ms of "
-        f"{span:.2f} ms, idle share {idle:.4f}; PSA kernels {psa_ms:.3f} ms "
-        f"({psa_ms / busy:.4f} of device time): " + ", ".join(
-            f"{k} {ms:.3f} ms / {cnt} launches = {ms / max(cnt, 1):.4f} ms each"
-            for k, (ms, cnt) in sorted(psa_rows.items())))
+        f"{[round(v, 4) for v in losses]}")
     del tr, model, images, labels
     torch.cuda.empty_cache()
-    return dict(step_s=step_s, images_per_s=batch / step_s, peak_gib=peak, idle=idle,
-                psa_share=psa_ms / busy)
+    return dict(step_s=step_s, images_per_s=batch / step_s, peak_gib=peak)
 
 
 def phase_psa_module_f32(dev):
@@ -1436,17 +1364,11 @@ def phase_multiscale(dev, images, smi):
                 ev.model.psa.fused_attention = None
             agreement(19, "PSANet50 multi-scale kernel vs plain attention", pf, pp)
         rates[label], by_model[label] = len(preds) / seconds, counts
-        busy, span, idle, table, psa_rows = device_profile(
-            lambda: ev.predict(images[2]), OUT_DIR / f"multiscale_{label}_profile.txt")
         log(f"[19 multi-scale] {label} bf16 {h}x{w}, scales {MS_SCALES}, flip, window_batch "
             f"8: {windows} windows in {chunks} chunks an image; {len(preds)} requests in "
             f"{seconds:.3f} s = {rates[label]:.4f} images/s on {smi}; launches {counts}; "
             f"predict vs argmax of predict_probs: {int(differ.sum())} pixels differ, all on "
-            f"exact ties of the mean; profile of one request: device busy {busy:.2f} ms of "
-            f"{span:.2f} ms, idle share {idle:.4f}, PSA kernels "
-            f"{sum(ms for ms, _ in psa_rows.values()):.3f} ms")
-        for ln in table.splitlines()[3:9]:
-            log(f"[19 multi-scale]   {ln.strip()[:150]}")
+            f"exact ties of the mean")
         del ev, pf
         torch.cuda.empty_cache()
     return rates, by_model

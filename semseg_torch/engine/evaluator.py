@@ -21,6 +21,11 @@ With a bf16 model on CUDA, each chunk's zoom upsample, softmax and flip
 average run as one fused kernel (``ops/stitch.py``) on logits taken at
 feature resolution.
 
+While a profiler runs, each device-mode request (``predict_async``,
+``predict_probs``) is the span ``semseg.eval.image``, and inside it each
+chunk's model call is ``semseg.eval.forward`` and its logits-to-
+probabilities step ``semseg.eval.stitch`` (``utils/trace.py``).
+
 Several devices (``devices``, the first the primary, which holds the
 canvas, the coverage and the final resize) run each chunk's window
 forwards as JAX's ``mesh=`` does (``semseg_tpu/engine/evaluator.py:
@@ -47,6 +52,7 @@ from semseg_torch.ops.resize import resize_bilinear_half_pixel_cf
 from semseg_torch.ops.stitch import supported, upsample_softmax_flip
 from semseg_torch.parallel.spatial import Spatial, split_rows
 from semseg_torch.utils.misc import LRU, resolve_device, tensor_cache
+from semseg_torch.utils.trace import span
 
 
 def _grid_coords(new_h, new_w, crop_h, crop_w, stride_rate):
@@ -285,18 +291,21 @@ class SlidingWindowEvaluator:
         The model returns float32 logits whose values are exact in its
         compute dtype, so the cast to it loses nothing."""
         wb = len(wins)
+        device = self.devices[k]
         batch = torch.cat([wins, wins.flip(-1)]) if self.flip else wins
-        if self.fused_stitch:
-            logits = self._logits(k, batch, zoom=False)
-            pairs = torch.stack([logits[:wb], logits[wb:]], dim=1).to(self.dtype)
-            return upsample_softmax_flip(pairs.contiguous(), (self.crop_h, self.crop_w))
-        probs = torch.softmax(self._logits(k, batch).float(), dim=1)
-        if self.dtype == torch.bfloat16:
-            probs = probs.to(torch.bfloat16)
-        if self.flip:
-            # un-flip = reverse W after the softmax
-            probs = (probs[:wb] + probs[wb:].flip(-1)) / 2
-        return probs
+        with span("semseg.eval.forward", device):
+            logits = self._logits(k, batch, zoom=not self.fused_stitch)
+        with span("semseg.eval.stitch", device):
+            if self.fused_stitch:
+                pairs = torch.stack([logits[:wb], logits[wb:]], dim=1).to(self.dtype)
+                return upsample_softmax_flip(pairs.contiguous(), (self.crop_h, self.crop_w))
+            probs = torch.softmax(logits.float(), dim=1)
+            if self.dtype == torch.bfloat16:
+                probs = probs.to(torch.bfloat16)
+            if self.flip:
+                # un-flip = reverse W after the softmax
+                probs = (probs[:wb] + probs[wb:].flip(-1)) / 2
+            return probs
 
     def _chunk_probs(self, wins):
         """One chunk's normalized windows on the primary -> their averaged
@@ -483,7 +492,8 @@ class SlidingWindowEvaluator:
         exactly); float64 in host mode."""
         if self.mode == "host":
             return self._predict_probs_host(image)
-        probs = self._probs_sum(self._upload(image)).float() / len(self.scales)
+        with span("semseg.eval.image", self.device):
+            probs = self._probs_sum(self._upload(image)).float() / len(self.scales)
         return probs.permute(1, 2, 0).cpu().numpy()
 
     @torch.inference_mode()
@@ -491,7 +501,8 @@ class SlidingWindowEvaluator:
         """The uint8 class map ``[h, w]`` (argmax of the float32 sum over
         scales) as a device tensor; on CUDA the work is queued and the call
         returns before it finishes."""
-        return self.predict_tensor(self._upload(image))
+        with span("semseg.eval.image", self.device):
+            return self.predict_tensor(self._upload(image))
 
     def predict(self, image: np.ndarray) -> np.ndarray:
         """argmax class map for one image (uint8)."""

@@ -28,6 +28,12 @@ over the ranks and the histograms their sum (``tool/train.py:279-290``),
 in one collective without a host sync, and the dropout seed folds in the
 rank.
 
+While a profiler runs, :meth:`Trainer.step` is the span
+``semseg.train.step`` around ``semseg.train.forward`` (input layout, the
+model, both losses), ``semseg.train.backward`` (the last step's gradients
+freed, the backward) and ``semseg.train.optimizer`` (the poly LR installed,
+the SGD step; ``utils/trace.py``).
+
 Under tensor parallelism the model holds its TP shard
 (``build_model(tp_group=...)``) and ``process_group`` is the rank's data
 group (None for a single data rank): DDP, the metrics and the dropout
@@ -50,6 +56,7 @@ from semseg_torch.models.layers import Dropout2d
 from semseg_torch.ops.resize import resize_bilinear_align_corners_cf
 from semseg_torch.parallel.dist import all_reduce_sum
 from semseg_torch.utils.metrics import intersection_and_union
+from semseg_torch.utils.trace import span
 
 
 def downscale_labels(labels, zoom_factor: int):
@@ -213,24 +220,33 @@ class Trainer:
         ``[B, H, W]`` integer labels). Returns the metrics dict: ``loss``,
         ``main_loss``, ``aux_loss`` (0-d tensors), ``lr`` (float) and the
         ``intersection``/``union``/``target`` histograms."""
-        images = device_normalize(images.to(self.device, non_blocking=True),
-                                  self.normalize)
-        labels = labels.to(self.device, non_blocking=True)
-        if self.zoom_factor != 8:
-            labels = downscale_labels(labels, self.zoom_factor)
-        labels = labels.long()
+        with span("semseg.train.step", self.device):
+            return self._step(images, labels)
 
-        lr = poly_lr(self.base_lr, self.step_count, self.max_iter, self.power)
-        set_lr(self.optimizer, lr)
-        self.generator.manual_seed(dropout_seed(self.rng_seed, self.step_count, self.rank))
-        self.model.train()
-        logits, aux = self.model(images)
-        main_loss = replica_mean_ce(logits, labels, self.num_replicas, self.ignore_label)
-        aux_loss = replica_mean_ce(aux, labels, self.num_replicas, self.ignore_label)
-        loss = main_loss + self.aux_weight * aux_loss
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
+    def _step(self, images, labels):
+        with span("semseg.train.forward", self.device):
+            images = device_normalize(images.to(self.device, non_blocking=True),
+                                      self.normalize)
+            labels = labels.to(self.device, non_blocking=True)
+            if self.zoom_factor != 8:
+                labels = downscale_labels(labels, self.zoom_factor)
+            labels = labels.long()
+            self.generator.manual_seed(dropout_seed(self.rng_seed, self.step_count,
+                                                    self.rank))
+            self.model.train()
+            logits, aux = self.model(images)
+            main_loss = replica_mean_ce(logits, labels, self.num_replicas, self.ignore_label)
+            aux_loss = replica_mean_ce(aux, labels, self.num_replicas, self.ignore_label)
+            loss = main_loss + self.aux_weight * aux_loss
+        with span("semseg.train.backward", self.device):
+            # the last step's gradients are freed here, not after its
+            # optimizer step: callers read them after a step
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("semseg.train.optimizer", self.device):
+            lr = poly_lr(self.base_lr, self.step_count, self.max_iter, self.power)
+            set_lr(self.optimizer, lr)
+            self.optimizer.step()
         self.step_count += 1
 
         with torch.no_grad():

@@ -56,7 +56,8 @@ augments in the native pipeline (``data/native.py``), built at first use.
 ``profile_dir``: rank 0 traces the first epoch it trains (its validation
 included) with ``torch.profiler`` (CPU and CUDA activities) and writes a
 Chrome trace, ``<profile_dir>/train_epoch_<N>.pt.trace.json``
-(``tool/train.py:426-485``).
+(``tool/train.py:426-485``), with the port's spans in it, and their tallies
+beside it, ``train_epoch_<N>.spans.json`` (``utils/trace.py``).
 
 ``model_parallel: M`` (``tool/train.py:74-90``) lays the ``W`` ranks out
 as ``W / M`` data ranks by ``M`` tensor-parallel peers
@@ -84,6 +85,7 @@ import numpy as np
 import torch
 
 from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
+from semseg_torch.utils.trace import tallies
 
 WIRE_DTYPES = {"float32": np.float32, "float16": np.float16, "uint8": np.uint8}
 
@@ -114,7 +116,8 @@ def _finish(cfg, steps):
 class _EpochTrace:
     """``profile_dir``'s trace: a ``torch.profiler`` window (CPU activity,
     and CUDA on a CUDA device) from :meth:`start` to :meth:`write`, which
-    exports it as a Chrome trace. Inactive without a directory."""
+    exports it as a Chrome trace and the port's span tallies beside it
+    (``utils/trace.py``). Inactive without a directory."""
 
     def __init__(self, profile_dir, device, logger):
         self.dir, self.logger, self.prof = profile_dir, logger, None
@@ -132,13 +135,17 @@ class _EpochTrace:
         self.prof.start()
 
     def write(self, epoch):
-        """Stop and write ``train_epoch_<epoch>.pt.trace.json``; only once."""
+        """Stop and write ``train_epoch_<epoch>.pt.trace.json`` and
+        ``train_epoch_<epoch>.spans.json`` (:func:`tallies`: per span name,
+        its count and host and device seconds); only once."""
         if self.prof is None:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
+        with open(os.path.join(self.dir, f"train_epoch_{epoch}.spans.json"), "w") as f:
+            json.dump(tallies(), f, indent=1, sort_keys=True)
         path = os.path.join(self.dir, f"train_epoch_{epoch}.pt.trace.json")
         self.prof.export_chrome_trace(path)
         self.prof = None

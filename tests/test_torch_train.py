@@ -557,7 +557,9 @@ def test_model_parallel_batch_divides_by_the_data_ranks():
 def test_profile_dir_is_logged_and_ignored(tmp_path):
     """``profile_dir`` traces the first epoch (``tool/train.py:426-485``):
     the run trains as without it, logs the trace's path and writes one
-    Chrome trace (``traceEvents``) holding the step's convolutions."""
+    Chrome trace (``traceEvents``) holding the step's convolutions and the
+    port's spans, and beside it the spans' tallies: ``semseg.train.step``
+    once a step of the epoch."""
     import json
     import logging
 
@@ -572,9 +574,15 @@ def test_profile_dir_is_logged_and_ignored(tmp_path):
     cfg = train.parse_args(_train_args(tmp_path, "profile_dir", str(prof)))
     res = train.run(cfg, "cpu", logger=logger)
     assert res["trainer"].step_count == 1
-    assert os.listdir(prof) == ["train_epoch_1.pt.trace.json"]
+    assert sorted(os.listdir(prof)) == ["train_epoch_1.pt.trace.json",
+                                        "train_epoch_1.spans.json"]
     trace = json.loads((prof / "train_epoch_1.pt.trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::conv") for n in names), sorted(names)[:20]
+    assert "semseg.train.step" in names
+    spans = json.loads((prof / "train_epoch_1.spans.json").read_text())
+    step = spans["semseg.train.step"]
+    assert step["count"] == res["trainer"].step_count
+    assert 0 < step["self_host_s"] < step["host_s"] == step["device_s"]
     path = prof / "train_epoch_1.pt.trace.json"
     assert any(r.getMessage() == f"Profiler trace written to: {path}" for r in records)
