@@ -19,7 +19,7 @@ the card and its host pipeline (phase 23); tensor-parallel ranks (phase
 ADE20K PSPNet50 and Cityscapes PSANet50 recipes, the evaluator's bounded
 per-shape caches, ADE20K and VOC2012 serving (phase 27). The CUDA
 kernels are built from ``semseg_torch/csrc`` on first use. Phases, one line
-each (12 runs after 4):
+each (28 runs after 3, 12 after 4):
 
 1. device: the card's name and power limit; TF32 off;
 2. build: compile the kernel libraries in parallel (one nvcc each), print
@@ -53,14 +53,16 @@ each (12 runs after 4):
    bit-identical results in two calls; kernel, plain and plain-autograd
    times and the bounds;
 5. PSPNet slice: ``build_evaluator`` answers requests; each must launch the
-   stitch kernel exactly twice (two chunks) and no PSA kernel; images/s;
+   stitch kernel exactly twice (two chunks), the BatchNorm kernel once a
+   BatchNorm a forward (``BN_FORWARD``: 2 x 60) and no PSA kernel;
+   images/s;
 6. PSPNet fused vs plain stitch: argmax agreement >= 0.995, probabilities
    within 2e-2 (share of near-tied pixels printed beside);
 7. PSPNet f32: one 713x713 window's logits on the card and on the CPU,
    max relative error <= 1e-3 (catches TF32);
 8. PSANet slice: each request must launch the tensor-core resident
    forward exactly 4 times (2 chunks x 2 directions), the stitch kernel
-   twice and no other kernel; images/s;
+   twice, the BatchNorm kernel 2 x 61 times and no other kernel; images/s;
 9. PSANet kernel vs plain attention: one image with ``fused_attention``
    off (both sides use the fused stitch): agreement >= 0.995,
    probabilities within 2e-2;
@@ -97,9 +99,9 @@ each (12 runs after 4):
    reference's protocol, named in the configs' TEST section), bf16, flip,
    ``window_batch`` 8: PSPNet50 (81 windows, 22 chunks a 1024x2048 image)
    and PSANet50 (84 windows, 23 chunks), one warm-up and 2 timed requests
-   each. Each request must launch the stitch kernel once a chunk and, for
-   PSANet50, the bf16 tensor-core forward twice a chunk (two directions),
-   nothing else; ``predict`` equals the argmax of ``predict_probs`` (but on
+   each. Each request must launch the stitch kernel once a chunk, the
+   BatchNorm kernel once a BatchNorm a chunk and, for PSANet50, the bf16
+   tensor-core forward twice a chunk (two directions), nothing else; ``predict`` equals the argmax of ``predict_probs`` (but on
    exact ties of the mean); PSANet50 with ``fused_attention`` off against
    on: agreement >= 0.995, probabilities within 2e-2; images/s with the
    card's name and power limit;
@@ -107,13 +109,14 @@ each (12 runs after 4):
    ``semseg_torch.train.run`` of ``cityscapes_psanet50.yaml`` (bf16, batch
    8, 705 crops, 16 training images: 2 steps an epoch, 2 epochs,
    ``evaluate True`` on 4 images, ``profile_dir`` set: the first epoch's
-   Chrome trace must name the bf16 PSA kernels), uninterrupted, then stopped by the
+   Chrome trace must name the bf16 PSA kernels, its span tallies beside it), uninterrupted, then stopped by the
    preemption hook after step 3 and resumed with ``resume auto``: the
    snapshot after step 3 and gone after the resumed epoch save, two epoch
    files (keep-2), the resumed state equal to the uninterrupted run's bit
    for bit, or else within twice the spread of a second uninterrupted run
    that differs from the first; every train step launches the bf16 forward, da and
-   dx twice each, every validation batch the bf16 forward twice; finite
+   dx twice each, every validation batch the bf16 forward twice and the
+   BatchNorm kernel 61 times; finite
    validation mIoU; checkpoint save, async save and restore seconds. Then
    ``semseg_torch.test.run`` with the trained ``.pth`` over the 4 images
    (f32, single scale, flip): gray and color PNGs, ``cal_acc``'s mIoU, the
@@ -145,7 +148,8 @@ each (12 runs after 4):
 23. the evaluator over ``devices=[cuda:0, cuda:0]`` (two entries sharing
    one replica on the card): ``partition="window"``, bf16, 2 images of
    each model, the stitch kernel on each entry's pairs (4 an image) and
-   PSANet50's bf16 forward twice an entry a chunk (8 an image); bit for
+   PSANet50's bf16 forward twice an entry a chunk (8 an image), the
+   BatchNorm kernel once a BatchNorm an entry's forward; bit for
    bit (so within 2e-2, agreement >= 0.995) the single-device evaluator
    that runs each entry's forward batch (``window_batch`` 4), and beside
    it, not gated, the bf16 forward's own spread against ``window_batch``
@@ -154,7 +158,8 @@ each (12 runs after 4):
    primary, the 3xTF32 forward 4 times; window: 8 times); within 1e-4 of
    one device, agreement >= 0.999. ``"spatial"``, bf16, 1 image of each
    model: the stitch once a chunk on the primary on the gathered logits (2
-   an image), PSANet50's bf16 forward twice a chunk (4 an image); its
+   an image), PSANet50's bf16 forward twice a chunk (4 an image), the
+   BatchNorm kernel once a BatchNorm a slab (``SPATIAL_IMAGE``); its
    spread from one device within 1.5x that of one device at
    ``window_batch`` 4 against 8, and its distance to the f32 result within
    1.25x one device's (``bf16_spatial_gate``). ``mode="host"``, PSPNet50
@@ -173,7 +178,8 @@ each (12 runs after 4):
    then the bf16 arm from one f32 init (seed 0, 400 steps): initial states
    bit for bit the init, TF32 off in the f32 arm, finite losses, exact
    launches (PSANet50: 2 forwards, 2 da and 2 dx of the dtype a step, 2
-   forwards a validation batch; PSPNet50: none), every final val mIoU >=
+   forwards a validation batch; the bf16 arms: the BatchNorm kernel once a
+   BatchNorm a validation batch), every final val mIoU >=
    0.5 and |gap| < 10 points (the JAX tool's 1-point verdict printed
    beside); beside the arms, in processes of its own,
    ``semseg_torch/tool/train.sh`` on a PSANet50 config in
@@ -196,7 +202,8 @@ each (12 runs after 4):
    flip, ``window_batch`` 8, 4 timed 1024x2048 requests each, the
    BatchNorm statistics taken from train-mode windows as training leaves
    them (with the init's, eval BatchNorm grows the logits to about 1e4):
-   the stitch twice and PSANet101's bf16 forward 4 times a request,
+   the stitch twice, the BatchNorm kernel 2 x 111 (PSPNet101) or 2 x 112
+   (PSANet101) times and PSANet101's bf16 forward 4 times a request,
    images/s, fused against plain at the bars of phases 6 and 9;
 27. reproducible float32 training through ``semseg_torch.train.run``
    (which trains under cuDNN's deterministic algorithms): the ADE20K
@@ -215,9 +222,19 @@ each (12 runs after 4):
    cache within ``CACHE_ENTRIES``, the memory beside the caches flat within
    ``RESIDUAL_MIB``, an evicted size and a fresh evaluator bit for bit the
    driver's PNGs; bf16 ADE20K PSANet50 serving (465x465 windows, hw 900)
-   over the 24 images with the stitch kernel once a chunk and the bf16
-   forward twice a chunk, fused against unfused stitch at 150 classes at
-   phase 6's bars; one VOC2012 PSPNet50 request (21 classes).
+   over the 24 images with the stitch kernel once a chunk, the BatchNorm
+   kernel 61 times a chunk and the bf16 forward twice a chunk, fused against unfused stitch at 150 classes at
+   phase 6's bars; one VOC2012 PSPNet50 request (21 classes);
+28. the inference-mode BatchNorm kernel (``ops/batchnorm.py``) against its
+   plain version at the PSPNet50 serving shapes (batch 8 of 713x713
+   windows: the stem, layer1, layer3, layer4 and a pyramid pooling bin) in
+   the forms the model runs there (plain, ReLU, residual add and ReLU),
+   bit for bit, with both times (CUDA events, median of 20) beside the
+   byte bound (4 B an element, 6 B with the residual, at 3.35 TB/s) and
+   the library's (``F.batch_norm`` in eval, then ``add_`` and ``relu_``:
+   its time and the share of its elements off the plain version's bits);
+   then a bf16 PSPNet50 eval forward of 8 windows: 60 launches, logits bit
+   for bit those of the eager BatchNorm, and both forwards' times in turns.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. Any failure raises (non-zero exit). The process imports
@@ -304,11 +321,14 @@ def kernels():
     3xTF32 kernels, which the PSA entry points launch for bf16 and f32
     operands; ``psa_softmax_bmm_flash`` and ``psa_softmax_bmm_flash_bwd``
     count the flash forward's and backward's routes (their calls on CUDA
-    tensors), which launch those kernels."""
+    tensors), which launch those kernels; ``batchnorm_eval`` the
+    inference-mode BatchNorm kernel of bf16 activations."""
     from semseg_torch.ops import psa
+    from semseg_torch.ops.batchnorm import batchnorm_eval
     from semseg_torch.ops.stitch import upsample_softmax_flip
 
     return {"upsample_softmax_flip": upsample_softmax_flip,
+            "batchnorm_eval": batchnorm_eval,
             "psa_softmax_bmm_wgmma": psa.psa_softmax_bmm_wgmma,
             "psa_softmax_bmm_tf32x3": psa.psa_softmax_bmm_tf32x3,
             "psa_softmax_bmm_flash": psa.psa_softmax_bmm_flash,
@@ -442,6 +462,16 @@ def check_counts(label, got, want):
         raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
 
 
+# The BatchNorm kernel's launches in a bf16 eval forward on the card: one a
+# BatchNorm the model runs (the ``aux`` head's runs only in training), by
+# (arch, layers). Float32 models and train-mode BatchNorm launch none.
+BN_FORWARD = {("psp", 50): 60, ("psa", 50): 61, ("psp", 101): 111, ("psa", 101): 112}
+
+
+def bn_forward(cfg):
+    return BN_FORWARD[(cfg.arch, cfg.layers)]
+
+
 def street_sample(seed, h=1024, w=2048):
     """A seeded street-like uint8 RGB image (sky band, buildings of random
     widths and colours, road with lane marks, pixel noise) and its
@@ -528,7 +558,7 @@ def ptxas_summary(build_log):
 def phase_build():
     from semseg_torch.ops._build import build_library
 
-    names = ("stitch", "psa")
+    names = ("stitch", "psa", "batchnorm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build_library, names))
@@ -567,6 +597,122 @@ def phase_stitch_kernel(dev):
         results[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
         del lp, got, want
     return results
+
+
+# Phase 28: (label, shape, form) at the PSPNet50 serving shapes, batch 8 of
+# 713x713 windows; form "plain" (the stem's ConvBN, whose ReLU runs apart; a
+# downsample), "relu" (a block's bn1, bn2) or "residual" (a block's bn3).
+BN_SHAPES = (("stem", (8, 64, 357, 357), "plain"),
+             ("layer1 bn3", (8, 256, 179, 179), "residual"),
+             ("layer3 bn3", (8, 1024, 90, 90), "residual"),
+             ("layer4 bn2", (8, 512, 90, 90), "relu"),
+             ("layer4 downsample", (8, 2048, 90, 90), "plain"),
+             ("layer4 bn3", (8, 2048, 90, 90), "residual"),
+             ("ppm bin 6", (8, 512, 6, 6), "plain"))
+
+
+def phase_batchnorm(dev, smi):
+    """Phase 28 (see the module's docstring). Returns the readings by
+    label and the forward's."""
+    import torch.nn.functional as F
+
+    from semseg_torch.models.layers import BatchNorm2d
+    from semseg_torch.models.pspnet import PSPNet
+    from semseg_torch.ops import batchnorm
+    from semseg_torch.utils.misc import deterministic_cudnn
+
+    def seeded(m, g):
+        c = m.num_features
+        with torch.no_grad():
+            m.weight.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+            m.bias.copy_(torch.randn(c, generator=g, device=dev) * 0.1)
+            m.running_mean.copy_(torch.randn(c, generator=g, device=dev) * 0.1)
+            m.running_var.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+        return m
+
+    def library(x, bn, res, relu):  # PyTorch's own eval BatchNorm, then the add and ReLU
+        y = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
+                         bn.eps)
+        if res is not None:
+            y.add_(res)
+        return torch.relu_(y) if relu else y
+
+    results = {}
+    for label, shape, form in BN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        bn = seeded(BatchNorm2d(shape[1]).to(dev).eval(), g)
+        x = (torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16)
+        res = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               if form == "residual" else None)
+        relu = form != "plain"
+        with torch.inference_mode():
+            got = batchnorm.batchnorm_eval(x, bn, residual=res, relu=relu)
+            want = batchnorm.batchnorm_eval_reference(x, bn, residual=res, relu=relu)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                diff = (got.view(torch.int16) != want.view(torch.int16)).sum().item()
+                raise AssertionError(f"[28 batchnorm] {label} {form}: {diff} elements differ "
+                                     f"from the plain version")
+            lib = library(x, bn, res, relu)
+            lib_differ = (lib.view(torch.int16) != want.view(torch.int16)).float().mean().item()
+            lib_err = (lib.float() - want.float()).abs().max().item()
+            ms = cuda_ms(lambda: batchnorm.batchnorm_eval(x, bn, residual=res, relu=relu))
+            plain_ms = cuda_ms(lambda: batchnorm.batchnorm_eval_reference(
+                x, bn, residual=res, relu=relu))
+            library_ms = cuda_ms(lambda: library(x, bn, res, relu))
+        nbytes = x.numel() * (6 if res is not None else 4)
+        bnd = bound(nbytes, 0, torch.float32, products=False)
+        results[label] = dict(shape=shape, form=form, ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound=bnd, share=bnd[0] / ms,
+                              library_differ=lib_differ, library_err=lib_err)
+        log(f"[28 batchnorm] {label} {list(shape)} {form}: bit for bit; kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e9:.3f} TB/s, {100 * bnd[0] / ms:.1f} % of the byte bound "
+            f"{bnd[0]:.4f} ms), plain {plain_ms:.4f} ms; library (F.batch_norm, then add_ "
+            f"and relu_ in place) {library_ms:.4f} ms, {100 * lib_differ:.3f} % of its "
+            f"elements off the plain version's bits, max abs diff {lib_err:.3e}")
+        del x, res, got, want, lib
+
+    model = PSPNet(layers=50, classes=19, zoom_factor=8, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            seeded(m, g)
+    x = torch.randn(8, 3, 713, 713, generator=g, device=dev)
+    rule = batchnorm.supported
+
+    def eager(dtype):  # the dispatch rule turned off: the eager BatchNorm, as before the kernel
+        return False
+
+    times = {"kernel": [], "eager": []}
+    try:
+        with deterministic_cudnn(), torch.inference_mode():
+            reset_counts()
+            got = model(x)
+            torch.cuda.synchronize()
+            launched = read_counts()
+            batchnorm.supported = eager
+            want = model(x)
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            del got, want
+            for name in ("eager", "kernel", "kernel", "eager"):
+                batchnorm.supported = eager if name == "eager" else rule
+                times[name].append(cuda_ms(lambda: model(x), reps=5, warmup=1))
+    finally:
+        batchnorm.supported = rule
+    kernel_ms, eager_ms = np.mean(times["kernel"]), np.mean(times["eager"])
+    log(f"[28 batchnorm] PSPNet50 bf16 eval forward [8,3,713,713]: launches {launched}, logits "
+        f"bit for bit the eager BatchNorm's: {same}; {kernel_ms:.2f} ms ({times['kernel']}) "
+        f"against eager {eager_ms:.2f} ms ({times['eager']}); on {smi}")
+    check_counts("[28 batchnorm] PSPNet50 bf16 eval forward", launched,
+                 launches(batchnorm_eval=BN_FORWARD[("psp", 50)]))
+    if not same:
+        raise AssertionError("[28 batchnorm] the forward's logits differ from the eager "
+                             "BatchNorm's")
+    del model, x
+    torch.cuda.empty_cache()
+    return results, dict(launches=launched, kernel_ms=kernel_ms, eager_ms=eager_ms)
 
 
 def phase_psa_kernels(dev, extents=PSA_EXTENTS, tag="4 psa kernels"):
@@ -725,9 +871,10 @@ def phase_stitch_vs_plain(dev, ev, image, cfg=None, tag=6, label="PSPNet"):
     agreement(tag, f"{label} fused vs plain stitch", pf, pp)
 
 
-def phase_psa_vs_plain(ev, image, tag=9, label="PSANet"):
+def phase_psa_vs_plain(ev, image, tag=9, label="PSANet", cfg=None):
     """The same weights and the fused stitch on both sides; only the
     attention differs (kernel vs plain softmax + bmm)."""
+    bn = bn_forward(cfg or psanet_cfg())
     pf = ev.predict_probs(image)
     ev.model.psa.fused_attention = False
     try:
@@ -737,7 +884,8 @@ def phase_psa_vs_plain(ev, image, tag=9, label="PSANet"):
         counts = read_counts()
     finally:
         ev.model.psa.fused_attention = None
-    check_counts("plain attention", counts, launches(upsample_softmax_flip=2))
+    check_counts("plain attention", counts,
+                 launches(upsample_softmax_flip=2, batchnorm_eval=2 * bn))
     agreement(tag, f"{label} kernel vs plain attention", pf, pp)
 
 
@@ -1341,7 +1489,8 @@ def phase_multiscale(dev, images, smi):
         seconds = time.perf_counter() - t0
         counts = read_counts()
         check_counts(f"{label} multi-scale", counts, {k: v * len(preds) for k, v in launches(
-            upsample_softmax_flip=chunks, psa_softmax_bmm_wgmma=psa_fwd).items()})
+            upsample_softmax_flip=chunks, psa_softmax_bmm_wgmma=psa_fwd,
+            batchnorm_eval=chunks * bn_forward(cfg)).items()})
         for pred in preds:
             if pred.shape != (h, w) or pred.dtype != np.uint8 or pred.max() >= cfg.classes:
                 raise AssertionError(f"{label}: bad class map {pred.shape} {pred.dtype}")
@@ -1359,7 +1508,8 @@ def phase_multiscale(dev, images, smi):
                 pp = ev.predict_probs(images[1])
                 torch.cuda.synchronize()
                 check_counts("multi-scale plain attention", read_counts(),
-                             launches(upsample_softmax_flip=chunks))
+                             launches(upsample_softmax_flip=chunks,
+                                      batchnorm_eval=chunks * bn_forward(cfg)))
             finally:
                 ev.model.psa.fused_attention = None
             agreement(19, "PSANet50 multi-scale kernel vs plain attention", pf, pp)
@@ -1375,9 +1525,10 @@ def phase_multiscale(dev, images, smi):
 
 
 # Phase 20: per validation batch of the bf16 driver, one eval forward (two
-# directions); per 1024x2048 image of the f32 test driver, two chunks of
-# 4 windows and their flips through the 3xTF32 forward (two directions).
-DRIVER_VAL_BATCH = dict(psa_softmax_bmm_wgmma=2)
+# directions, and the BatchNorm kernel once a BN); per 1024x2048 image of
+# the f32 test driver, two chunks of 4 windows and their flips through the
+# 3xTF32 forward (two directions).
+DRIVER_VAL_BATCH = dict(psa_softmax_bmm_wgmma=2, batchnorm_eval=BN_FORWARD[("psa", 50)])
 # The bf16 train step's kernels, by the names the device trace gives them.
 TRACE_KERNELS = ("psa_wgmma_kernel", "psa_da_wgmma_kernel")
 DRIVER_TEST_IMAGE = dict(psa_softmax_bmm_tf32x3=4)
@@ -1498,10 +1649,11 @@ def phase_drivers(dev, root, smi):
     vals = [v["mIoU"] for v in full["val"]]
     if len(full["val"]) != 2 or not all(np.isfinite(vals)):
         raise AssertionError(f"validation results {full['val']}")
-    traces = sorted((out / "profile").glob("*.json"))
+    traces = sorted((out / "profile").glob("*.pt.trace.json"))
     text = traces[0].read_text() if len(traces) == 1 else ""
     named = {k: text.count(k) for k in TRACE_KERNELS}
     if not (traces == [out / "profile" / "train_epoch_1.pt.trace.json"]
+            and (out / "profile" / "train_epoch_1.spans.json").is_file()
             and '"traceEvents"' in text and all(named.values())):
         raise AssertionError(f"profile_dir: traces {traces}, kernel names {named}")
     trace_mb = traces[0].stat().st_size / 2 ** 20
@@ -1997,12 +2149,19 @@ def phase_export(dev, images, smi):
 # (two directions); the f32 PSANet50 the 3xTF32 forward alike (no stitch:
 # f32). Under ``spatial`` the stitch runs once a chunk on the primary, on
 # the gathered logits, and the PSA module whole there: its bf16 (or f32
-# 3xTF32) forward twice a chunk; the f32 PSPNet50 launches no kernel.
+# 3xTF32) forward twice a chunk; the f32 PSPNet50 launches no kernel. The
+# bf16 BatchNorm kernel: under ``window`` once a BN an entry's forward (4
+# an image); under ``spatial`` once a BN a slab, the backbone's and
+# ``cls``'s on both entries, the PPM's bins of 2, 3 and 6 rows on both and
+# the 1-row bin on the primary, the PSA module's on the primary (119 and
+# 117 a chunk).
 PARTITION_ENTRIES = 2
-WINDOW_IMAGE = {"PSPNet50": dict(upsample_softmax_flip=4),
-                "PSANet50": dict(upsample_softmax_flip=4, psa_softmax_bmm_wgmma=8)}
-SPATIAL_IMAGE = {"PSPNet50": dict(upsample_softmax_flip=2),
-                 "PSANet50": dict(upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4)}
+WINDOW_IMAGE = {"PSPNet50": dict(upsample_softmax_flip=4, batchnorm_eval=4 * 60),
+                "PSANet50": dict(upsample_softmax_flip=4, psa_softmax_bmm_wgmma=8,
+                                 batchnorm_eval=4 * 61)}
+SPATIAL_IMAGE = {"PSPNet50": dict(upsample_softmax_flip=2, batchnorm_eval=2 * 119),
+                 "PSANet50": dict(upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4,
+                                  batchnorm_eval=2 * 117)}
 SPATIAL_F32_IMAGE = {"PSPNet50": {}, "PSANet50": dict(psa_softmax_bmm_tf32x3=4)}
 SPATIAL_TOL = 1e-4  # f32 sums in another order (cuDNN's choice by shape)
 # The bf16 spatial partition against its two witnesses: one device at half
@@ -2278,16 +2437,21 @@ CONV_MIN_MIOU = 0.5
 CONV_MAX_GAP = 10.0
 
 
-def psa_arm_launches(dtype_name, steps, evals):
-    """An arm's PSA launches: two directions a forward, so 2 forwards, 2
-    da and 2 dx a train step and 2 forwards a validation batch."""
+def arm_launches(arch, dtype_name, steps, evals):
+    """An arm's launches. PSANet50's PSA kernels: two directions a forward,
+    so 2 forwards, 2 da and 2 dx a train step and 2 forwards a validation
+    batch. The bf16 arm's validation batches: the BatchNorm kernel once a
+    BN (PSPNet50 60, PSANet50 61)."""
     from semseg_torch import convergence as conv
 
+    batches = evals * (conv.N_VAL // conv.BATCH)
+    bn = BN_FORWARD[(arch, 50)] * batches if dtype_name == "bfloat16" else 0
+    if arch == "psp":
+        return launches(batchnorm_eval=bn)
     kind = "tf32x3" if dtype_name == "float32" else "wgmma"
-    fwd = 2 * steps + 2 * evals * (conv.N_VAL // conv.BATCH)
-    return launches(**{f"psa_softmax_bmm_{kind}": fwd,
+    return launches(**{f"psa_softmax_bmm_{kind}": 2 * steps + 2 * batches,
                        f"psa_softmax_bmm_bwd_da_{kind}": 2 * steps,
-                       f"psa_softmax_bmm_bwd_dx_{kind}": 2 * steps})
+                       f"psa_softmax_bmm_bwd_dx_{kind}": 2 * steps}, batchnorm_eval=bn)
 
 
 def phase_convergence(dev, smi):
@@ -2358,7 +2522,7 @@ def convergence_arms(conv, dev, smi):
             counts = read_counts()
             evals = len(results[name])
             check_counts(f"convergence {arch} {name}", counts,
-                         launches() if arch == "psp" else psa_arm_launches(name, steps, evals))
+                         arm_launches(arch, name, steps, evals))
             by_path[f"convergence_{arch}_{'f32' if name == 'float32' else 'bf16'}"] = counts
             finite = torch.stack(losses).isfinite().all().item()
             final = results[name][-1][1]
@@ -2772,9 +2936,11 @@ def phase_r101(dev, root, images, smi):
     torch.cuda.empty_cache()
 
     for label, cfg, per_image in (
-            ("PSPNet101", pspnet101_cfg(), launches(upsample_softmax_flip=2)),
+            ("PSPNet101", pspnet101_cfg(),
+             launches(upsample_softmax_flip=2, batchnorm_eval=2 * BN_FORWARD[("psp", 101)])),
             ("PSANet101", psanet101_cfg(),
-             launches(upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4))):
+             launches(upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4,
+                      batchnorm_eval=2 * BN_FORWARD[("psa", 101)]))):
         ev, counts, rate = phase_slice(
             26, label, cfg, dev, images[:R101_SERVE], per_image,
             trained_statistics(label, cfg.test_h, dev, images[:R101_SERVE]))
@@ -2783,7 +2949,7 @@ def phase_r101(dev, root, images, smi):
         if cfg.arch == "psp":
             phase_stitch_vs_plain(dev, ev, images[0], cfg, 26, label)
         else:
-            phase_psa_vs_plain(ev, images[0], 26, label)
+            phase_psa_vs_plain(ev, images[0], 26, label, cfg)
         del ev
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - phase_t0
@@ -3115,7 +3281,8 @@ def served(label, config, dev, images, psa, **keys):
         seconds += time.perf_counter() - t0
         counts = read_counts()
         check_counts(f"{label} image {k} {h}x{w}", counts, launches(
-            upsample_softmax_flip=chunks, psa_softmax_bmm_wgmma=2 * chunks if psa else 0))
+            upsample_softmax_flip=chunks, psa_softmax_bmm_wgmma=2 * chunks if psa else 0,
+            batchnorm_eval=chunks * bn_forward(cfg)))
         if pred.shape != (h, w) or pred.dtype != np.uint8 or pred.max() >= cfg.classes:
             raise AssertionError(f"{label}: bad class map {pred.shape} {pred.dtype}")
         total = {n: total[n] + v for n, v in counts.items()}
@@ -3220,19 +3387,20 @@ def main():
     name, smi = phase_device()
     phase_build()
     stitch_k = phase_stitch_kernel(dev)
+    bn_k, bn_fwd = phase_batchnorm(dev, smi)
     psa_k = phase_psa_kernels(dev)
     bwd_k = phase_psa_backward(dev)
     images = [street_image(seed) for seed in range(N_TIMED)]
 
     ev, psp_counts, _ = phase_slice(5, "PSPNet50", pspnet_cfg(), dev, images,
-                                    launches(upsample_softmax_flip=2))
+                                    launches(upsample_softmax_flip=2, batchnorm_eval=2 * 60))
     phase_stitch_vs_plain(dev, ev, images[0])
     phase_f32(7, "PSPNet50", pspnet_cfg(), dev, ev, images[1], launches())
     del ev
     torch.cuda.empty_cache()
 
     ev, psa_counts, _ = phase_slice(8, "PSANet50", psanet_cfg(), dev, images, launches(
-        upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4))
+        upsample_softmax_flip=2, psa_softmax_bmm_wgmma=4, batchnorm_eval=2 * 61))
     phase_psa_vs_plain(ev, images[0])
     shrink1_counts = phase_shrink1(dev, images[2])
     phase_f32(11, "PSANet50", psanet_cfg(), dev, ev, images[1],
@@ -3276,6 +3444,8 @@ def main():
         f"batch 16 remat {r101['f32_b16_remat']['peak_gib']:.2f} GiB; serving PSPNet101 "
         f"{r101['PSPNet101_images_per_s']:.4f}, PSANet101 {r101['PSANet101_images_per_s']:.4f} "
         f"images/s; phase 26 {r101['seconds']:.1f} s; phase 27 {repro['seconds']:.1f} s, "
+        f"PSPNet50 bf16 forward of 8 windows {bn_fwd['kernel_ms']:.2f} ms, eager BatchNorm "
+        f"{bn_fwd['eager_ms']:.2f} ms; "
         f"ADE20K PSPNet50 f32 batch 16 peak {repro['ADE20K PSPNet50']['peak_gib']:.2f} GiB; "
         f"the script "
         f"{time.perf_counter() - script_t0:.1f} s; on {smi}"
@@ -3309,6 +3479,7 @@ def main():
     # plain ms, bound): each at the shape and dtype of its main path. The
     # flash forward's and backward's rows are their routes, which count their
     # own calls.
+    bn4 = bn_k["layer4 bn3"]
     records = [
         ("upsample_softmax_flip", "semseg_torch/csrc/stitch.cu",
          "semseg_tpu/ops/stitch_pallas.py:131", psa_counts, city["max_abs_err"],
@@ -3338,16 +3509,22 @@ def main():
          "semseg_tpu/ops/psa_pallas.py:383", shrink1_train_counts,
          max(fbwd["errs"]["route_da"], fbwd["errs"]["route_dx"]), fbwd["ms_f"],
          fbwd["plain_da"] + fbwd["plain_dx"], flash_bwd_bound),
+        ("batchnorm_eval", "semseg_torch/csrc/batchnorm.cu",
+         "none: XLA fuses semseg_tpu/models/layers.py:142-145", psp_counts, 0.0, bn4["ms"],
+         bn4["plain_ms"], bn4["bound"]),
     ]
     missing = [k for k, *_, counts, _e, _m, _p, _b in records if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
-    # No single PyTorch call computes any of these functions (each fuses a
-    # softmax, or an upsample and a softmax, with a product): library_ms null.
+    # No single PyTorch call computes the stitch or the PSA functions (each
+    # fuses a softmax, or an upsample and a softmax, with a product):
+    # library_ms null. The BatchNorm's is F.batch_norm with add_ and relu_.
+    library = {"batchnorm_eval": bn4["library_ms"]}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": counts[k], "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": library.get(k),
         "launches_by_path": {p: c[k] for p, c in by_path.items()},
     } for k, src, rep, counts, err, ms, plain_ms, bnd in records]}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from semseg_torch.ops.batchnorm import batchnorm_eval
+
 
 def set_precision(dtype, matmul_precision=None) -> None:
     """The float32 precision contract (JAX ``layers.py:53-89``): float32
@@ -73,7 +75,12 @@ def _recomputing() -> bool:
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose eval path is the JAX package's
     (``layers.py:142-145``): ``(x - mean) * rsqrt(var + eps) * weight +
-    bias`` in float32, cast back to the input dtype. Train mode takes its
+    bias`` in float32, cast back to the input dtype
+    (``ops/batchnorm.py::batchnorm_eval``: one kernel for bfloat16 CUDA
+    activations, the eager expression otherwise). ``residual`` and
+    ``relu`` give ``relu(bn(x) + residual)`` in one call, the add and the
+    in-place ReLU in ``x``'s dtype, which a residual block's eval forward
+    takes as one kernel. Train mode takes its
     moments in float32 on the input, running statistics with momentum 0.1
     and the unbiased variance, as the JAX ``BatchNorm``
     (``layers.py:147-199``), in one of three forms (set by
@@ -96,24 +103,26 @@ class BatchNorm2d(nn.BatchNorm2d):
     groups = 1
     process_group = None
 
-    def forward(self, x):
-        if self.training:
-            if self.process_group is not None:
-                return self._synced(x)
-            if self.groups > 1:
-                return self._grouped(x)
-            if _recomputing():
-                # The same call on copies of the statistics: the same
-                # kernel, so the same moments, bit for bit.
-                return F.batch_norm(x.float(), self.running_mean.clone(),
-                                    self.running_var.clone(), self.weight, self.bias, True,
-                                    self.momentum, self.eps).to(x.dtype)
-            return super().forward(x.float()).to(x.dtype)
-        shape = (1, -1, 1, 1)
-        y = (x.float() - self.running_mean.view(shape)) * torch.rsqrt(
-            self.running_var.view(shape) + self.eps
-        )
-        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+    def forward(self, x, residual=None, relu=False):
+        if not self.training:
+            return batchnorm_eval(x, self, residual, relu)
+        y = self._train(x)
+        if residual is not None:
+            y = y + residual
+        return torch.relu_(y) if relu else y
+
+    def _train(self, x):
+        if self.process_group is not None:
+            return self._synced(x)
+        if self.groups > 1:
+            return self._grouped(x)
+        if _recomputing():
+            # The same call on copies of the statistics: the same
+            # kernel, so the same moments, bit for bit.
+            return F.batch_norm(x.float(), self.running_mean.clone(),
+                                self.running_var.clone(), self.weight, self.bias, True,
+                                self.momentum, self.eps).to(x.dtype)
+        return super().forward(x.float()).to(x.dtype)
 
     @torch.no_grad()
     def _track(self, mean, var, count):

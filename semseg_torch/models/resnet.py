@@ -9,6 +9,9 @@ Port of ``semseg_tpu/models/resnet.py``:
   and dilations (1, 1, 2, 4), output stride 8 (reference
   ``model/pspnet.py:49-58``);
 - kaiming fan_out init for convs, BN weight 1 and bias 0;
+- each block's ReLUs, and its last BN's residual add and ReLU, are
+  arguments of the BN calls (``layers.BatchNorm2d``: in eval mode one
+  kernel each for bfloat16 CUDA activations, ``ops/batchnorm.py``);
 - ``remat``: each residual block of layer1..layer4 is recomputed in the
   backward pass (JAX ``nn.remat``, ``models/resnet.py:162-166``), trading
   one more backbone forward for the blocks' saved activations.
@@ -50,14 +53,12 @@ class BasicBlock(nn.Module):
         self.conv2 = Conv2d(planes, planes, 3, padding=dilation,
                             dilation=dilation, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
     def forward(self, x):
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self.conv2(self.bn1(self.conv1(x), relu=True))
         residual = x if self.downsample is None else self.downsample(x)
-        return self.relu(out + residual)
+        return self.bn2(out, residual=residual, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -72,15 +73,13 @@ class Bottleneck(nn.Module):
         self.bn2 = BatchNorm2d(planes)
         self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = BatchNorm2d(planes * 4)
-        self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
     def forward(self, x):
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.bn1(self.conv1(x), relu=True)
+        out = self.conv3(self.bn2(self.conv2(out), relu=True))
         residual = x if self.downsample is None else self.downsample(x)
-        return self.relu(out + residual)
+        return self.bn3(out, residual=residual, relu=True)
 
 
 _ARCH = {

@@ -1213,3 +1213,253 @@ def test_f32_train_run_on_the_card_repeats_itself(cuda, tmp_path):
         assert torch.equal(b["state_dict"][k], v), k
     for k, v in a["optimizer"]["state"].items():
         assert torch.equal(b["optimizer"]["state"][k]["momentum_buffer"], v["momentum_buffer"]), k
+
+
+def _seeded_batchnorm(c, g, dev):
+    """An eval ``BatchNorm2d`` with affine parameters and running
+    statistics drawn from ``g`` (variances from 0.05 to 2.05, not the
+    initial 1)."""
+    from semseg_torch.models.layers import BatchNorm2d
+
+    bn = BatchNorm2d(c).to(dev).eval()
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+        bn.bias.copy_(torch.randn(c, generator=g, device=dev) * 0.3)
+        bn.running_mean.copy_(torch.randn(c, generator=g, device=dev) * 0.5)
+        bn.running_var.copy_(torch.rand(c, generator=g, device=dev) * 2 + 0.05)
+    return bn
+
+
+@pytest.mark.parametrize("variant", ["plain", "relu", "residual"])
+@pytest.mark.parametrize("shape", [
+    (8, 64, 357, 357),   # the deep stem (odd planes: vectors straddle channels)
+    (8, 256, 179, 179),  # layer1
+    (8, 2048, 90, 90),   # layer4
+    (8, 512, 1, 1),      # the pyramid pooling's bins
+    (8, 512, 6, 6),
+    (3, 5, 7, 3),        # ragged: 315 elements, a tail after the last vector
+])
+def test_batchnorm_kernel_matches_plain_bit_for_bit(cuda, shape, variant):
+    from semseg_torch.ops.batchnorm import batchnorm_eval, batchnorm_eval_reference
+
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    bn = _seeded_batchnorm(shape[1], g, cuda)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    res = (torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+           if variant == "residual" else None)
+    relu = variant != "plain"
+    with torch.inference_mode():
+        before = batchnorm_eval.launches
+        got = batchnorm_eval(x, bn, residual=res, relu=relu)
+        torch.cuda.synchronize()
+        assert batchnorm_eval.launches == before + 1
+        want = batchnorm_eval_reference(x, bn, residual=res, relu=relu)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("variant", ["plain", "relu", "residual"])
+def test_batchnorm_kernel_special_values_and_offsets(cuda, variant):
+    """NaN, infinities, a -0.0 result (x at the mean, weight -1, bias
+    -0.0) and a view that starts off a 16-byte boundary (the scalar form),
+    bit for bit against the plain version."""
+    from semseg_torch.ops.batchnorm import batchnorm_eval, batchnorm_eval_reference
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bn = _seeded_batchnorm(4, g, cuda)
+    with torch.no_grad():
+        bn.weight[0], bn.bias[0] = -1.0, -0.0
+    base = (torch.randn(3 * 4 * 11 * 5 + 1, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    x = base[1:].view(3, 4, 11, 5)  # storage offset of 2 bytes: contiguous, unaligned
+    x[0, 0, 0, :3] = bn.running_mean[0].to(torch.bfloat16)
+    x[1, 0, 2, :3] = bn.running_mean[0].to(torch.bfloat16)
+    x[0, 1, 0, 0], x[0, 2, 0, 0], x[0, 3, 0, 0] = float("nan"), float("inf"), -float("inf")
+    res = (torch.randn(x.shape, generator=g, device=cuda).to(torch.bfloat16)
+           if variant == "residual" else None)
+    if res is not None:
+        res[0, 0, 0, 0] = -0.0
+    for inp in (x, x.contiguous()):  # the scalar form, then the vectors
+        with torch.inference_mode():
+            got = batchnorm_eval(inp, bn, residual=res, relu=variant != "plain")
+            want = batchnorm_eval_reference(inp, bn, residual=res, relu=variant != "plain")
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("variant", ["plain", "relu", "residual"])
+def test_batchnorm_kernel_channels_last_bit_for_bit(cuda, variant):
+    """Channels-last activations, which cuDNN's convolutions give for a
+    channels-last input (an NHWC batch permuted to NCHW), run the kernel
+    with their order kept, bit for bit against the plain version."""
+    from semseg_torch.ops.batchnorm import batchnorm_eval, batchnorm_eval_reference
+
+    for shape in ((4, 256, 45, 45), (3, 5, 7, 3)):
+        g = torch.Generator(device=cuda).manual_seed(sum(shape))
+        bn = _seeded_batchnorm(shape[1], g, cuda)
+        x = (torch.randn(shape, generator=g, device=cuda) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        res = (torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last) if variant == "residual" else None)
+        assert not x.is_contiguous()
+        with torch.inference_mode():
+            before = batchnorm_eval.launches
+            got = batchnorm_eval(x, bn, residual=res, relu=variant != "plain")
+            torch.cuda.synchronize()
+            assert batchnorm_eval.launches == before + 1
+            want = batchnorm_eval_reference(x, bn, residual=res, relu=variant != "plain")
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_batchnorm_kernel_invstd_sweep(cuda):
+    """The kernel's ``rsqrtf(var + eps)`` against the plain version's
+    ``torch.rsqrt(running_var + eps)`` over 4096 channels of variances
+    spread over eight decades: every output bit for bit (a one-ulp
+    difference in a channel's invstd turns some of its 16 K outputs)."""
+    from semseg_torch.ops.batchnorm import batchnorm_eval, batchnorm_eval_reference
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    c = 4096
+    bn = _seeded_batchnorm(c, g, cuda)
+    with torch.no_grad():
+        bn.running_var.copy_(10.0 ** (torch.rand(c, generator=g, device=cuda) * 8 - 4))
+        bn.running_mean.mul_(1e-2)
+    x = (torch.randn(4, c, 64, 64, generator=g, device=cuda) * 1e-2).to(torch.bfloat16)
+    for eps in (1e-5, 1e-3):
+        bn.eps = eps
+        with torch.inference_mode():
+            got = batchnorm_eval(x, bn)
+            want = batchnorm_eval_reference(x, bn)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), eps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_kernel_follows_statistics_that_training_moves(cuda, dtype):
+    """Train-mode steps on the card (cuDNN updates the running statistics
+    in place) between bf16 eval calls: each eval call normalises with the
+    statistics of the moment, bit for bit the plain version."""
+    from semseg_torch.ops.batchnorm import batchnorm_eval, batchnorm_eval_reference
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+    bn = _seeded_batchnorm(64, g, cuda)
+    x = (torch.randn(4, 64, 33, 33, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    for _ in range(3):
+        bn.train()
+        with torch.no_grad():
+            bn((torch.randn(8, 64, 17, 17, generator=g, device=cuda) * 3 + 1).to(dtype))
+        bn.eval()
+        with torch.inference_mode():
+            got = batchnorm_eval(x, bn, relu=True)
+            want = batchnorm_eval_reference(x, bn, relu=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_batchnorm_kernel_rejects_what_it_does_not_take(cuda):
+    from semseg_torch.ops.batchnorm import batchnorm_eval
+
+    bn = _seeded_batchnorm(4, torch.Generator(device=cuda).manual_seed(0), cuda)
+    x = torch.zeros(2, 4, 6, 6, device=cuda, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="contiguous"):
+            batchnorm_eval(x.transpose(2, 3), bn)
+        with pytest.raises(ValueError, match="contiguous"):
+            batchnorm_eval(x, bn, residual=x.transpose(2, 3), relu=True)
+        with pytest.raises(ValueError, match="residual"):
+            batchnorm_eval(x, bn, residual=x.float())
+        with pytest.raises(ValueError):
+            batchnorm_eval(x[0], bn)  # no batch axis
+
+
+def _psp_bf16(cuda, seed=0):
+    """A bf16 PSPNet50 on the card with seeded weights and BN statistics."""
+    from semseg_torch.models.layers import BatchNorm2d
+    from semseg_torch.models.pspnet import PSPNet
+
+    model = PSPNet(layers=50, classes=19, zoom_factor=8, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    model = model.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(torch.rand(c, generator=g, device=cuda) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=g, device=cuda) * 0.1)
+                m.running_mean.copy_(torch.randn(c, generator=g, device=cuda) * 0.1)
+                m.running_var.copy_(torch.rand(c, generator=g, device=cuda) + 0.5)
+    return model
+
+
+def test_pspnet50_bf16_eval_runs_one_kernel_per_batchnorm(cuda, monkeypatch):
+    """A bf16 eval forward launches the BN kernel once for each of the 60
+    BatchNorms it runs, and its logits equal those of the eager path (the
+    dispatch rule turned off) bit for bit."""
+    from semseg_torch.ops import batchnorm
+    from semseg_torch.utils.misc import deterministic_cudnn
+
+    model = _psp_bf16(cuda).eval()
+    x = torch.randn(2, 3, 129, 129, generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    with deterministic_cudnn(), torch.inference_mode():
+        before = batchnorm.batchnorm_eval.launches
+        got = model(x)
+        torch.cuda.synchronize()
+        assert batchnorm.batchnorm_eval.launches - before == 60
+        monkeypatch.setattr(batchnorm, "supported", lambda dtype: False)
+        want = model(x)
+        assert batchnorm.batchnorm_eval.launches - before == 60
+    assert got.dtype == torch.float32 and torch.equal(got.view(torch.int32),
+                                                      want.view(torch.int32))
+
+
+def test_bf16_eval_step_runs_the_kernel_bit_for_bit(cuda, monkeypatch):
+    """The training driver's validation step (``eval_step``: an NHWC batch
+    normalised on the card, so channels-last activations) runs the BN
+    kernel once a BatchNorm and gives the eager path's sums bit for bit."""
+    from semseg_torch.engine.trainer import eval_step
+    from semseg_torch.ops import batchnorm
+    from semseg_torch.serve import IMAGENET_MEAN, IMAGENET_STD
+    from semseg_torch.utils.misc import deterministic_cudnn
+
+    model = _psp_bf16(cuda).eval()
+    g = torch.Generator().manual_seed(4)
+    images = torch.randint(0, 256, (2, 129, 129, 3), generator=g, dtype=torch.uint8)
+    labels = torch.randint(0, 19, (2, 129, 129), generator=g)
+    kw = dict(classes=19, ignore_label=255, zoom_factor=8,
+              normalize=(IMAGENET_MEAN, IMAGENET_STD))
+    with deterministic_cudnn():
+        before = batchnorm.batchnorm_eval.launches
+        got = eval_step(model, images, labels, **kw)
+        torch.cuda.synchronize()
+        assert batchnorm.batchnorm_eval.launches - before == 60
+        monkeypatch.setattr(batchnorm, "supported", lambda dtype: False)
+        want = eval_step(model, images, labels, **kw)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_batchnorm_kernel_stays_off_f32_training_and_autograd(cuda):
+    """No launch in a float32 eval forward, in a bf16 train step, or in a
+    bf16 eval forward that autograd records (its gradients flow)."""
+    from semseg_torch.models.pspnet import PSPNet
+    from semseg_torch.ops.batchnorm import batchnorm_eval
+
+    x = torch.randn(2, 3, 65, 65, generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda)
+    before = batchnorm_eval.launches
+    f32 = PSPNet(layers=50, classes=3, zoom_factor=8).to(cuda).eval()
+    with torch.inference_mode():
+        f32(x)
+    del f32
+    model = _psp_bf16(cuda).train()
+    logits, aux = model(x)
+    (logits.mean() + aux.mean()).backward()
+    model.eval()
+    model.zero_grad()
+    model(x).float().mean().backward()
+    torch.cuda.synchronize()
+    assert batchnorm_eval.launches == before
+    assert model.layer1[0].conv1.weight.grad is not None

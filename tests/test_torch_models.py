@@ -298,3 +298,189 @@ def test_build_model_rules():
         build.validate_arch(NS(**{**vars(cfg), "zoom_factor": 3}))
     with pytest.raises(ValueError):
         PSPNet(layers=50, classes=3)(torch.zeros(1, 3, 32, 33))
+
+
+def _eager_bn(bn, x):
+    """Eval BatchNorm as the port computed it before the fused kernel:
+    float32 statistics math, cast back to the input dtype."""
+    shape = (1, -1, 1, 1)
+    y = (x.float() - bn.running_mean.view(shape)) * torch.rsqrt(
+        bn.running_var.view(shape) + bn.eps)
+    return (y * bn.weight.view(shape) + bn.bias.view(shape)).to(x.dtype)
+
+
+def _seeded_bn(bn, g):
+    """Affine parameters and running statistics drawn from ``g``, so that
+    eval BatchNorm is far from the identity."""
+    with torch.no_grad():
+        c = bn.num_features
+        bn.weight.copy_(torch.rand(c, generator=g) + 0.5)
+        bn.bias.copy_(torch.randn(c, generator=g) * 0.3)
+        bn.running_mean.copy_(torch.randn(c, generator=g) * 0.5)
+        bn.running_var.copy_(torch.rand(c, generator=g) * 2 + 0.05)
+    return bn
+
+
+@pytest.mark.parametrize("variant", ["plain", "relu", "residual"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_eval_reference_is_the_eager_path(dtype, variant):
+    """``batchnorm_eval_reference`` (which CPU tensors and float32 models
+    run) and the eval module equal the eager expression bit for bit: BN,
+    then the activation dtype's add and the in-place ReLU."""
+    from semseg_torch.ops.batchnorm import batchnorm_eval, batchnorm_eval_reference
+
+    g = torch.Generator().manual_seed(7)
+    bn = _seeded_bn(layers.BatchNorm2d(6), g).eval()
+    x = (torch.randn(2, 6, 5, 7, generator=g) * 3).to(dtype)
+    res = (torch.randn(2, 6, 5, 7, generator=g) * 2).to(dtype) if variant == "residual" else None
+    want = _eager_bn(bn, x)
+    if res is not None:
+        want = want + res
+    if variant != "plain":
+        want = torch.relu_(want)
+    with torch.no_grad():
+        for got in (batchnorm_eval_reference(x, bn, residual=res, relu=variant != "plain"),
+                    batchnorm_eval(x, bn, residual=res, relu=variant != "plain")):
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            assert got.dtype == dtype and torch.equal(got.view(bits), want.view(bits))
+        if variant == "plain":
+            assert torch.equal(bn(x), want)
+
+
+def _unfused_block(block, x):
+    """A residual block's eval forward as the port ran it before the BN
+    calls took the ReLUs and the residual add in."""
+    out = torch.relu_(_eager_bn(block.bn1, block.conv1(x)))
+    if hasattr(block, "conv3"):
+        out = torch.relu_(_eager_bn(block.bn2, block.conv2(out)))
+        out = _eager_bn(block.bn3, block.conv3(out))
+    else:
+        out = _eager_bn(block.bn2, block.conv2(out))
+    ds = block.downsample
+    residual = x if ds is None else _eager_bn(ds[1], ds[0](x))
+    return torch.relu_(out + residual)
+
+
+def _seeded_block(kind, stride, seed):
+    from semseg_torch.models.resnet import BasicBlock, Bottleneck, _stage
+
+    block_cls, planes = (Bottleneck, 4) if kind == "bottleneck" else (BasicBlock, 16)
+    block = _stage(block_cls, 16, planes, 1, stride, 1)[0]
+    g = torch.Generator().manual_seed(seed)
+    for m in block.modules():
+        if isinstance(m, layers.BatchNorm2d):
+            _seeded_bn(m, g)
+        elif isinstance(m, torch.nn.Conv2d):
+            layers.kaiming_normal_fan_out_(m.weight, g)
+    return block, torch.relu(torch.randn(2, 16, 9, 9, generator=g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,stride", [("bottleneck", 1), ("bottleneck", 2), ("basic", 1),
+                                         ("basic", 2)])
+def test_eval_blocks_fold_relu_and_residual_bit_for_bit(kind, stride, dtype):
+    """Eval ``Bottleneck`` and ``BasicBlock`` (with and without a
+    ``downsample``) equal the unfused sequence bit for bit on seeded
+    weights and running statistics."""
+    block, x = _seeded_block(kind, stride, 11 + stride)
+    assert (block.downsample is not None) == (stride == 2)
+    block.eval()
+    x = x.to(dtype)
+    with torch.no_grad():
+        got, want = block(x), _unfused_block(block, x)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_batchnorm_eval_calls_by_mode(monkeypatch, training):
+    """An eval PSPNet50 forward calls ``batchnorm_eval`` once for each of
+    the 60 BatchNorms it runs (the ``aux`` head's runs only in training),
+    the blocks' ReLUs and residual adds inside those calls. A train-mode
+    forward never calls it."""
+    calls = []
+
+    def counting(x, bn, residual=None, relu=False):
+        calls.append(bn)
+        return original(x, bn, residual=residual, relu=relu)
+
+    original = layers.batchnorm_eval
+    monkeypatch.setattr(layers, "batchnorm_eval", counting)
+    model = PSPNet(layers=50, classes=3, zoom_factor=8)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.train(training)
+    x = torch.randn(2, 3, 33, 33, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        model(x)
+    bns = [m for name, m in model.named_modules()
+           if isinstance(m, layers.BatchNorm2d) and not name.startswith("aux")]
+    if training:
+        assert calls == []
+    else:
+        assert len(calls) == len(bns) == 60 and {id(m) for m in calls} == {id(m) for m in bns}
+
+
+@pytest.mark.parametrize("kind", ["bottleneck", "basic"])
+def test_block_batchnorm_mode_is_each_batchnorms_own(kind):
+    """A block in eval mode whose BatchNorms are in train mode normalises
+    with batch statistics, as the all-train block does: each BN's own mode
+    picks its path, and the block has one forward."""
+    import copy
+
+    block, x = _seeded_block(kind, 2, 5)
+    mixed = copy.deepcopy(block)
+    block.train()
+    mixed.eval()
+    for m in mixed.modules():
+        if isinstance(m, layers.BatchNorm2d):
+            m.train()
+    with torch.no_grad():
+        want, got = block(x), mixed(x)
+    assert torch.equal(got, want)
+    for a, b in zip(block.buffers(), mixed.buffers()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["relu", "residual"])
+def test_train_batchnorm_folds_relu_and_residual_as_separate_ops(variant):
+    """Train-mode ``BatchNorm2d(x, residual, relu)`` is the BN, then the
+    add and the in-place ReLU, bit for bit, in the output, the running
+    statistics and the gradients."""
+    import copy
+
+    g = torch.Generator().manual_seed(9)
+    bn = _seeded_bn(layers.BatchNorm2d(6), g).train()
+    ref = copy.deepcopy(bn)
+    x = torch.randn(4, 6, 5, 7, generator=g, requires_grad=True)
+    res = (torch.randn(4, 6, 5, 7, generator=g, requires_grad=True)
+           if variant == "residual" else None)
+    got = bn(x, residual=res, relu=True)
+    want = ref(x)
+    want = torch.relu_(want if res is None else want + res)
+    assert torch.equal(got, want)
+    for a, b in zip(bn.buffers(), ref.buffers()):
+        assert torch.equal(a, b)
+    leaves = [x, bn.weight, bn.bias] + ([res] if res is not None else [])
+    grads = torch.autograd.grad(got.square().sum(), leaves)
+    ref_leaves = [x, ref.weight, ref.bias] + ([res] if res is not None else [])
+    for a, b in zip(grads, torch.autograd.grad(want.square().sum(), ref_leaves)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_batchnorm_after_training_uses_the_new_statistics(dtype):
+    """Eval BatchNorm, between train-mode steps that move the running
+    statistics, normalises with the statistics of the moment: the eager
+    expression on the current buffers, bit for bit."""
+    from semseg_torch.ops.batchnorm import batchnorm_eval
+
+    g = torch.Generator().manual_seed(13)
+    bn = _seeded_bn(layers.BatchNorm2d(6), g)
+    x = (torch.randn(4, 6, 5, 7, generator=g) * 3).to(dtype)
+    for _ in range(3):
+        bn.train()
+        with torch.no_grad():
+            bn(torch.randn(4, 6, 5, 7, generator=g) * 2 + 1)
+        bn.eval()
+        with torch.no_grad():
+            got, want = batchnorm_eval(x, bn, relu=True), torch.relu_(_eager_bn(bn, x))
+        assert torch.equal(got, want)
